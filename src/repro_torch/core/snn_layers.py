@@ -3,8 +3,9 @@
 Port of the parts of ``repro.core.snn_layers`` the packaged integer
 forward runs: the float stem conv (:func:`spiking_conv_apply`), the
 integer twins that run every post-stem layer through the fused kernels
-(:func:`spiking_conv_int_apply`, :func:`spiking_dense_int_apply`), the
-binary max pool and the float readout, plus the weight packing and
+(:func:`spiking_conv_int_apply`, :func:`spiking_dense_int_apply`, and
+:func:`spiking_conv_group_int_apply` for a fusion group), the binary max
+pool and the float readout, plus the weight packing and
 threshold fold that ``deploy()`` shares with the per-call path.
 
 Layout convention: time axis first, activations (T, B, ...) NHWC.
@@ -21,6 +22,7 @@ from repro_torch.core import packing
 from repro_torch.core.lif import LIFConfig, lif_rollout_float
 from repro_torch.kernels.fused_conv import ops as fused_conv_ops
 from repro_torch.kernels.fused_conv.ref import conv_pads
+from repro_torch.kernels.fused_group import ops as fused_group_ops
 from repro_torch.kernels.fused_nce import ops as fused_nce_ops
 from repro_torch.quant.formats import PrecisionConfig
 from repro_torch.quant.ptq import quantize, quantize_conv
@@ -154,6 +156,48 @@ def spiking_conv_int_apply(
         leak_shift=lif.leak_shift, threshold_q=threshold_q,
         soft_reset=lif.soft_reset)
     return packing.unpack_bool(packed_out, qct.c_out)
+
+
+def spiking_conv_group_int_apply(
+    members,
+    spikes_t: torch.Tensor,     # (T, B, H, W, C) {0,1} binary spikes
+    lif: LIFConfig,
+    pc: PrecisionConfig,
+) -> torch.Tensor:
+    """Fusion-group twin of :func:`spiking_conv_int_apply`: a chain of 2+
+    stride-1 convs (with optional interleaved max pools) runs its whole
+    T-step rollout in ONE ``fused_group`` launch.
+
+    ``members`` is the executor-shaped chain: ``("conv", operands)``
+    entries carry the operands dict the single-layer twin takes (float
+    ``params`` to quantize per call, or a packed ``qct`` + ``threshold_q``
+    from a deploy package), ``("pool", window)`` entries the window.
+    Bit-exact with composing :func:`spiking_conv_int_apply` and
+    :func:`maxpool_t` member by member.  Returns (T, B, HoF, WoF, c_outF)
+    {0,1} int32 spikes."""
+    chain = []
+    last_c_out = None
+    for m in members:
+        if m[0] == "conv":
+            _, operands = m
+            qct = operands.get("qct")
+            if qct is None:
+                qct = pack_conv_weights(operands["params"], pc)
+            if qct.bits != pc.bits:
+                raise ValueError(f"packed weights are {qct.bits}-bit, "
+                                 f"precision asks for {pc.bits}-bit")
+            theta = operands.get("threshold_q")
+            if theta is None:
+                theta = _fold_threshold_q(qct.scale, lif)
+            chain.append(("conv", qct, theta))
+            last_c_out = qct.c_out
+        else:
+            chain.append(("pool", m[1]))
+    packed_in = packing.pack_bool(spikes_t)
+    _, packed_out = fused_group_ops.fused_group_rollout(
+        packed_in, tuple(chain), leak_shift=lif.leak_shift,
+        soft_reset=lif.soft_reset)
+    return packing.unpack_bool(packed_out, last_c_out)
 
 
 def spiking_dense_int_apply(

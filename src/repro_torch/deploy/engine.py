@@ -269,6 +269,14 @@ class SNNServeEngine:
             self._closed = True
         return self.stats()
 
+    def graph_summary(self) -> str:
+        """The served model's graph, one line per node, with fusion-group
+        membership and each group's shared memory when the cfg asks for
+        fusion (those chains run the ``fused_group`` kernel)."""
+        from repro_torch.graph import build_graph
+
+        return build_graph(self.cfg).summary()
+
     # -- accounting ------------------------------------------------------------
 
     @staticmethod

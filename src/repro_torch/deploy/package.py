@@ -10,11 +10,17 @@ read and written field for field, so either package loads the other's:
 
     __manifest__            JSON header: format version, serialized
                             SNNConfig, per-layer kind/bits/geometry,
-                            fusion groups (always empty here)
+                            per-fusion-group bundles (name, members,
+                            bits, packed_bytes, smem_bytes)
     layer:<name>:data       packed int32 weight words
     layer:<name>:scale      float32 per-channel quantizer scales
     layer:<name>:theta      int32 per-channel folded thresholds
     param:<dotted.path>     float leaves (the stem and the readout head)
+
+The groups section is informational: ``load`` (here and in ``repro``)
+re-plans the groups from the cfg's ``fusion`` request.  The port writes
+``smem_bytes`` (``kernels/smem.py``) where ``repro`` writes its own
+``vmem_bytes``.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from repro_torch.core.snn_layers import (
     pack_dense_weights,
 )
 from repro_torch.device import resolve_device
-from repro_torch.graph import build_graph
+from repro_torch.graph import build_graph, group_smem_bytes
 from repro_torch.graph.spec import Conv, Dense, get_path, set_path
 from repro_torch.quant.formats import (
     PrecisionConfig,
@@ -82,11 +88,13 @@ class PackedLayer:
 
 
 def _tree_map(fn, tree):
+    """``fn`` over the tensor leaves of a dict/list tree; other leaves (a
+    ResNet block's int ``stride``) are kept as they are."""
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
 
 
 @dataclasses.dataclass
@@ -133,6 +141,20 @@ class DeployedModel:
     def compression_ratio(self) -> float:
         return self.nbytes_dense_fp32() / max(self.nbytes_packed(), 1)
 
+    def _group_manifest(self):
+        """Per-fusion-group bundles for the v2 manifest: member order,
+        datapath width, the members' packed bytes, and the shared memory
+        the group's ``fused_group`` launch holds per block."""
+        graph = build_graph(self.cfg)
+        return [{
+            "name": g.name,
+            "members": list(g.members),
+            "bits": self.cfg.precision.bits,
+            "smem_bytes": int(group_smem_bytes(graph, g)),
+            "packed_bytes": sum(self.layers[m].nbytes_packed()
+                                for m in g.members if m in self.layers),
+        } for g in graph.groups]
+
     def save(self, path: str) -> str:
         """Write the package as one flat npz (see module docstring)."""
         arrays: Dict[str, np.ndarray] = {}
@@ -140,7 +162,7 @@ class DeployedModel:
             "version": PACKAGE_FORMAT_VERSION,
             "cfg": dataclasses.asdict(self.cfg),
             "layers": {},
-            "groups": [],
+            "groups": self._group_manifest(),
             "float_params": [],
         }
         for name, lp in self.layers.items():
@@ -164,7 +186,8 @@ class DeployedModel:
 
 def load(path: str, device="cuda") -> DeployedModel:
     """Read a package written by :meth:`DeployedModel.save` or by the JAX
-    package's ``save`` onto ``device``."""
+    package's ``save`` onto ``device``.  Fusion groups come from
+    re-planning the cfg's ``fusion`` request, as in ``repro``."""
     device = resolve_device(device)
 
     def tensor(arr):
@@ -176,12 +199,6 @@ def load(path: str, device="cuda") -> DeployedModel:
             raise ValueError(
                 f"package format v{manifest['version']} is not one of "
                 f"{COMPAT_FORMAT_VERSIONS}")
-        if manifest.get("groups"):
-            raise ValueError(
-                f"package {path} carries fusion groups "
-                f"{[g['name'] for g in manifest['groups']]}: the fused_group "
-                f"kernel is not yet ported to repro_torch; deploy with "
-                f"fusion=() instead")
         cfg = _cfg_from_dict(manifest["cfg"])
         layers = {}
         for name, meta in manifest["layers"].items():
@@ -241,22 +258,35 @@ def deploy(params, cfg, device="cuda") -> DeployedModel:
     return DeployedModel(cfg=cfg, float_params=float_params, layers=layers)
 
 
-def deploy_config(model: str = "vgg9", bits: int = 4, smoke: bool = True):
+def deploy_config(model: str = "vgg9", bits: int = 4, smoke: bool = True,
+                  fusion=()):
     """The int-deploy ``SNNConfig`` every serve entry point shares: the
-    JAX package's reduced smoke geometry or the paper-size model."""
+    JAX package's reduced smoke geometry or the paper-size model.
+    ``fusion`` is the multi-layer fusion request (``()`` / ``"auto"`` /
+    explicit member tuples, see ``repro_torch.graph.fusion``)."""
     from repro_torch.models.snn_cnn import SNNConfig
 
+    fusion = _normalize_fusion(fusion)
     pc = PrecisionConfig(bits=bits)
     if smoke:
         return SNNConfig(model=model, img_size=16, timesteps=3,
                          scale=0.15, n_classes=4, int_deploy=True,
-                         precision=pc)
-    return SNNConfig(model=model, int_deploy=True, precision=pc)
+                         precision=pc, fusion=fusion)
+    return SNNConfig(model=model, int_deploy=True, precision=pc,
+                     fusion=fusion)
 
 
 # ---------------------------------------------------------------------------
 # (de)serialization helpers
 # ---------------------------------------------------------------------------
+
+def _normalize_fusion(fusion):
+    """Hashable form of a fusion request: JSON round-trips tuples as
+    lists, and SNNConfig must stay hashable (it keys the graph cache)."""
+    if isinstance(fusion, str) or not fusion:
+        return fusion if fusion else ()
+    return tuple(tuple(m) for m in fusion)
+
 
 def _cfg_from_dict(d: Dict):
     from repro_torch.models.snn_cnn import SNNConfig
@@ -264,11 +294,8 @@ def _cfg_from_dict(d: Dict):
     d = dict(d)
     d["lif"] = LIFConfig(**d["lif"])
     d["precision"] = PrecisionConfig(**d["precision"])
-    if d.get("fusion"):
-        raise ValueError(
-            f"package cfg requests fusion={d['fusion']!r}: the fused_group "
-            f"kernel is not yet ported to repro_torch")
-    d["fusion"] = ()
+    # absent in v1 manifests (pre-fusion packages lower layer by layer)
+    d["fusion"] = _normalize_fusion(d.get("fusion", ()))
     return SNNConfig(**d)
 
 

@@ -1,18 +1,20 @@
 """Typed layer-graph specs: the single source of truth for SNN topology.
 
-The port's own copy of the parts of ``repro.graph.spec`` the vgg family
-needs (importing ``repro.graph`` would pull in JAX through its package
-``__init__``).  A :class:`ModelGraph` is a tuple of frozen
-:class:`LayerSpec` nodes; every consumer (init, the integer forwards,
-``deploy()``'s packing walk) is a traversal of the same nodes.  Each
-parameter-bearing spec's ``name`` is its flat dotted param path
-(``convs.1``, ``fc1``), which is also the deploy package's layer key.
+The port's own copy of ``repro.graph.spec`` (importing ``repro.graph``
+would pull in JAX through its package ``__init__``).  A
+:class:`ModelGraph` is a tuple of frozen :class:`LayerSpec` nodes; every
+consumer (init, the integer forwards, ``deploy()``'s packing walk) is a
+traversal of the same nodes.  Each parameter-bearing spec's ``name`` is
+its flat dotted param path (``convs.1``, ``blocks.2.proj``, ``fc1``),
+which is also the deploy package's layer key.  ``groups`` annotates
+multi-layer fusion (:class:`FusionGroup`, lowered by the ``fused_group``
+kernel).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +57,17 @@ class Pool(LayerSpec):
 
 
 @dataclasses.dataclass(frozen=True)
+class Residual(LayerSpec):
+    """ResNet basic block: body convs chained, optional 1x1 projection
+    shortcut, executor-chosen merge.  ``name`` is the block path
+    (``blocks.3``); the nested convs carry their own full paths."""
+
+    body: Tuple[Conv, ...] = ()
+    proj: Optional[Conv] = None
+    stride: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class Dense(LayerSpec):
     """Spiking fully-connected layer; input is flattened to (T,B,d_in)."""
 
@@ -80,21 +93,54 @@ class Readout(LayerSpec):
 
 
 @dataclasses.dataclass(frozen=True)
+class FusionGroup:
+    """A multi-layer fusion annotation: the named member layers' full
+    T-step rollouts run in ONE ``fused_group`` kernel launch, so the 1-bit
+    inter-member spike planes stay in shared memory.
+
+    ``members`` are flat dotted layer names in execution order: a
+    contiguous chain of stride-1 post-stem Convs (optionally interleaved
+    with / ended by Pools) inside one region, all top-level nodes or
+    exactly one Residual block's body.  ``repro_torch.graph.fusion``
+    checks legality; build groups with ``plan_fusion_groups`` /
+    ``apply_fusion``.  ``bits`` optionally pins the precision, which must
+    match the cfg's.
+    """
+
+    name: str
+    members: Tuple[str, ...]
+    bits: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelGraph:
     """One SNN architecture: an ordered node tuple + the cfg it was built
-    for."""
+    for.  ``groups`` annotates multi-layer fusion; an empty tuple lowers
+    layer by layer."""
 
     cfg: object                       # SNNConfig (duck-typed, no cycle)
     nodes: Tuple[LayerSpec, ...]
+    groups: Tuple[FusionGroup, ...] = ()
+
+    def iter_flat(self) -> Iterator[LayerSpec]:
+        """Every node in execution order, Residual bodies and projections
+        flattened after their block (conv1, conv2, proj)."""
+        for node in self.nodes:
+            yield node
+            if isinstance(node, Residual):
+                yield from node.body
+                if node.proj is not None:
+                    yield node.proj
 
     def param_specs(self) -> Iterator[LayerSpec]:
         """Parameter-bearing specs (Conv/Dense/Readout) in init order."""
-        for node in self.nodes:
+        for node in self.iter_flat():
             if isinstance(node, (Conv, Dense, Readout)):
                 yield node
 
     def packable_specs(self) -> Iterator[LayerSpec]:
-        """What ``deploy()`` packs: every non-stem Conv and every Dense."""
+        """What ``deploy()`` packs: every non-stem Conv (residual bodies
+        and projections included) and every Dense."""
         for spec in self.param_specs():
             if isinstance(spec, Conv) and not spec.stem:
                 yield spec
@@ -114,6 +160,9 @@ class ModelGraph:
                     spec.k, spec.stride, spec.out_hw, spec.stem)
         if isinstance(spec, Pool):
             return ("pool", spec.window)
+        if isinstance(spec, Residual):
+            return ("residual", spec.name, spec.stride,
+                    spec.proj is not None)
         if isinstance(spec, Dense):
             return ("dense", spec.name, spec.d_in, spec.d_out)
         if isinstance(spec, Readout):
@@ -122,9 +171,38 @@ class ModelGraph:
         raise TypeError(f"no topology row for {type(spec).__name__}")
 
     def topology(self) -> Tuple[Tuple, ...]:
-        """Hashable geometry fingerprint, one row per node (the same rows
-        as ``repro``'s ``ModelGraph.topology`` for an unfused graph)."""
-        return tuple(self._row(spec) for spec in self.nodes)
+        """Hashable geometry fingerprint, one row per flattened node, then
+        one row per fusion group (the rows of ``repro``'s
+        ``ModelGraph.topology``), so grouped and ungrouped graphs never
+        alias."""
+        rows = [self._row(spec) for spec in self.iter_flat()]
+        for g in self.groups:
+            rows.append(("fusion", g.name) + tuple(g.members))
+        return tuple(rows)
+
+    def summary(self) -> str:
+        """One line per flattened node, with fusion-group membership, then
+        each group's members and the shared memory its ``fused_group``
+        launch holds."""
+        lines = [f"ModelGraph({self.cfg.model}, T={self.cfg.timesteps}, "
+                 f"img={self.cfg.img_size})"]
+        grouped = {m: g.name for g in self.groups for m in g.members}
+        for spec in self.iter_flat():
+            tag = f"   [{grouped[spec.name]}]" if spec.name in grouped \
+                else ""
+            lines.append(
+                "  " + " ".join(str(c) for c in self._row(spec)) + tag)
+        if self.groups:
+            from repro_torch.graph import fusion as _fusion  # no cycle
+            from repro_torch.kernels import smem as _smem
+            for g in self.groups:
+                est = _fusion.group_smem_bytes(self, g)
+                lines.append(
+                    f"  fusion {g.name}: {' + '.join(g.members)} "
+                    f"({_smem.format_bytes(est)} shared memory of "
+                    f"{_smem.format_bytes(_smem.SMEM_LIMIT)} per block; "
+                    f"inter-member spikes stay on chip)")
+        return "\n".join(lines)
 
 
 # ---------------------------------------------------------------------------

@@ -27,10 +27,8 @@ from repro_torch.core import packing
 from repro_torch.core.lif import as_theta_vector
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.fused_conv import ref as _ref
+from repro_torch.kernels.smem import SMEM_LIMIT
 from repro_torch.quant.formats import QuantizedConvTensor
-
-# largest dynamic shared memory a Hopper block may use (227 KB)
-SMEM_LIMIT = 232448
 
 
 def _round_up(x: int, m: int) -> int:

@@ -25,8 +25,8 @@ import torch.nn.functional as F
 from repro_torch.core import packing
 from repro_torch.core.lif import as_theta_vector
 from repro_torch.kernels import build as _build
-from repro_torch.kernels.fused_conv.ops import SMEM_LIMIT
 from repro_torch.kernels.fused_nce import ref as _ref
+from repro_torch.kernels.smem import SMEM_LIMIT
 from repro_torch.quant.formats import QuantizedTensor
 
 

@@ -4,8 +4,13 @@ Packs a randomly initialized model (seeded) once with ``deploy`` and
 serves a synthetic request stream through :class:`SNNServeEngine`.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.serve_snn [--full]
-      [--bits 4] [--requests 32] [--max-batch 8] [--package PATH]
+      [--model vgg9|resnet18] [--fusion off|auto] [--bits 4]
+      [--requests 32] [--max-batch 8] [--package PATH]
       [--device cuda|cpu]
+
+``--fusion auto`` plans the model's fusion groups (vgg9: one chain of
+convs.1-4 and the pools; resnet18: the five stride-1 block bodies), each
+served by one launch of the ``fused_group`` kernel.
 
 ``--device`` defaults to ``cuda``; without a card the launcher raises
 unless ``--device cpu`` is given.
@@ -19,7 +24,9 @@ import time
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", default="vgg9", choices=("vgg9",))
+    ap.add_argument("--model", default="vgg9", choices=("vgg9", "resnet18"))
+    ap.add_argument("--fusion", default="off", choices=("off", "auto"),
+                    help="multi-layer fusion groups (fused_group kernel)")
     ap.add_argument("--bits", type=int, default=4, choices=(2, 4, 8))
     ap.add_argument("--smoke", dest="smoke", action="store_true",
                     default=True, help="reduced model geometry (default)")
@@ -43,7 +50,8 @@ def main(argv=None):
     from repro_torch.models import snn_cnn
 
     device = resolve_device(args.device)
-    cfg = deploy_config(args.model, args.bits, smoke=args.smoke)
+    cfg = deploy_config(args.model, args.bits, smoke=args.smoke,
+                        fusion="auto" if args.fusion == "auto" else ())
     params = snn_cnn.init(0, cfg, device=device)
     t0 = time.perf_counter()
     model = deploy(params, cfg, device=device)
@@ -58,6 +66,8 @@ def main(argv=None):
 
     eng = SNNServeEngine(model, SNNEngineConfig(max_batch=args.max_batch),
                          device=device)
+    if cfg.fusion:
+        print(eng.graph_summary())
     n_warm = eng.warmup()
     print(f"warmup ran {n_warm} bucket forwards: {eng.buckets}")
 

@@ -1,6 +1,7 @@
 """The paper's SNN benchmark models, as traversals of the model graph.
 
-Port of ``repro.models.snn_cnn`` for the VGG family's integer path.
+Port of ``repro.models.snn_cnn`` for the integer path of the vgg and
+resnet18 families, with or without fusion groups.
 ``scale`` shrinks every channel count (scale=1 is the paper-size model).
 Input: (B, H, W, C) analog images, direct-encoded over T timesteps.
 """
@@ -16,7 +17,7 @@ from repro_torch.quant.formats import PrecisionConfig
 
 @dataclasses.dataclass(frozen=True)
 class SNNConfig:
-    model: str = "vgg16"          # vgg16 | vgg9 (resnet18 not yet ported)
+    model: str = "vgg16"          # vgg16 | vgg9 | resnet18
     n_classes: int = 10
     in_channels: int = 3
     img_size: int = 32
@@ -27,8 +28,9 @@ class SNNConfig:
     # route every spiking layer after the stem through the fused kernels;
     # requires a quantized ``precision``
     int_deploy: bool = False
-    # multi-layer fusion request; only () is ported (build_graph raises
-    # otherwise).  Kept so package manifests round-trip field for field.
+    # multi-layer fusion request (repro_torch.graph.fusion.apply_fusion):
+    # () lowers layer by layer, "auto" plans the legal groups, or
+    # explicit member-name tuples; groups run the fused_group kernel
     fusion: object = ()
 
     def ch(self, c: int) -> int:

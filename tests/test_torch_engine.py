@@ -58,6 +58,42 @@ def test_five_requests_across_buckets_match_direct_forward(model):
             assert req.image is None
 
 
+def test_fusion_auto_requests_match_direct_forward():
+    """vgg9 fusion="auto": served logits equal a direct forward of the
+    same image (tolerance as above), the chain lowering through the
+    fused_group wrapper, and the ungrouped package's logits exactly."""
+    import dataclasses
+
+    from repro_torch.kernels.fused_group import ref as group_ref
+
+    cfg = deploy_config("vgg9", 4, fusion="auto")
+    fused = deploy(snn_cnn.init(1, cfg, device="cpu"), cfg, device="cpu")
+    flat = dataclasses.replace(fused, cfg=dataclasses.replace(cfg,
+                                                              fusion=()))
+    images = _images(cfg, 3, seed=4)
+    eng = SNNServeEngine(fused, SNNEngineConfig(max_batch=2), device="cpu")
+    assert "[fuse.0]" in eng.graph_summary()
+    assert eng.warmup() == 2
+    calls = []
+    plain = group_ref.fused_group_rollout_torch
+    group_ref.fused_group_rollout_torch = \
+        lambda *a, **k: calls.append(1) or plain(*a, **k)
+    try:
+        for uid, img in enumerate(images):
+            eng.add_request(SNNRequest(uid=uid, image=img))
+        assert eng.run_until_done()["batches"] == 2
+    finally:
+        group_ref.fused_group_rollout_torch = plain
+    assert len(calls) == 2
+    with torch.inference_mode():
+        for uid, img in enumerate(images):
+            x = torch.from_numpy(img[None])
+            direct = fused.apply(x)[0].numpy()
+            np.testing.assert_allclose(eng.done[uid].logits, direct,
+                                       rtol=1e-5, atol=1e-6)
+            np.testing.assert_array_equal(flat.apply(x)[0].numpy(), direct)
+
+
 def test_stats_keys_match_repro_engine(model):
     cfg = model.cfg
     jcfg = jdeploy_config("vgg9", 4)

@@ -19,6 +19,8 @@ import torch
 from repro_torch.core import packing
 from repro_torch.kernels.fused_conv import ops as conv_ops
 from repro_torch.kernels.fused_conv.ref import fused_conv_rollout_torch
+from repro_torch.kernels.fused_group import ops as group_ops
+from repro_torch.kernels.fused_group.ref import fused_group_rollout_torch
 from repro_torch.kernels.fused_nce import ops as nce_ops
 from repro_torch.kernels.fused_nce.ref import fused_nce_rollout_torch
 from repro_torch.quant.formats import PrecisionConfig
@@ -105,3 +107,57 @@ def test_empty_rollout_launches_nothing(cuda):
     assert conv_ops.fused_conv_rollout.launches == before
     assert v.shape == (2, 5, 5, 32) and s.shape == (0, 2, 5, 5, 1)
     assert not v.any()
+
+
+def _group_members(spec, c_in, bits, seed, cuda):
+    """A fusion chain like [64, "P", 128] with random codes and thetas."""
+    g = np.random.default_rng(seed)
+    members, c = [], c_in
+    for item in spec:
+        if item == "P":
+            members.append(("pool", 2))
+            continue
+        wf = torch.from_numpy((g.standard_normal((3, 3, c, item))
+                               * 0.2).astype(np.float32))
+        qct = quantize_conv(wf, PrecisionConfig(bits=bits)).to(cuda)
+        members.append(("conv", qct, _theta(seed + item, item, bits)
+                        .mul(3).to(cuda)))
+        c = item
+    return tuple(members)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,c_in,spec,bits,soft", [
+    (32, 64, [64, "P", 128, 128, "P", 256, "P"], 4, True),  # vgg9 chain
+    (16, 128, [128, 128], 8, False),                         # resnet18 body
+    (4, 512, [512, 512], 2, True),                           # resnet18 body
+    (12, 20, [40, "P", 36, "P"], 8, True),                   # ragged, pool
+])
+def test_fused_group_kernel_matches_plain(cuda, hw, c_in, spec, bits, soft):
+    members = _group_members(spec, c_in, bits, hw + bits, cuda)
+    planes = _spikes((4, 3, hw, hw, c_in), hw * 7).to(cuda)
+    kw = dict(leak_shift=3, v_reset_q=-3, soft_reset=soft)
+    pv, ps = fused_group_rollout_torch(planes, members, **kw)
+    before = group_ops.fused_group_rollout.launches
+    kv, ks = group_ops.fused_group_rollout(planes, members, **kw)
+    torch.cuda.synchronize()
+    assert group_ops.fused_group_rollout.launches == before + 1
+    assert kv.shape == pv.shape and ks.shape == ps.shape
+    assert torch.equal(kv, pv) and torch.equal(ks, ps)
+    assert pv.any()
+
+
+@pytest.mark.cuda
+def test_fused_group_empty_rollout_and_budget(cuda):
+    members = _group_members([32, 32], 32, 4, 1, cuda)
+    before = group_ops.fused_group_rollout.launches
+    v, s = group_ops.fused_group_rollout(
+        torch.zeros((0, 2, 6, 6, 1), dtype=torch.int32, device=cuda),
+        members, leak_shift=3)
+    assert v.shape == (2, 6, 6, 32) and s.shape == (0, 2, 6, 6, 1)
+    big = _group_members([64, 64], 64, 4, 2, cuda)
+    with pytest.raises(ValueError, match="shared memory > budget"):
+        group_ops.fused_group_rollout(
+            torch.zeros((1, 1, 256, 256, 2), dtype=torch.int32,
+                        device=cuda), big, leak_shift=3)
+    assert group_ops.fused_group_rollout.launches == before

@@ -148,6 +148,33 @@ def test_topology_matches_repro():
         assert build_graph(tcfg).count_macs() == jbuild_graph(jcfg).count_macs()
 
 
+def test_resnet18_init_shapes_match_repro():
+    """graph_init gives every parameter repro's shape and He-normal scale
+    and records each block's stride (the draws differ: torch.Generator is
+    not jax.random).  Scale tolerance: 10% of the expected std, over at
+    least 640 draws per tensor at full width."""
+    from repro_torch.graph.spec import get_path
+    from repro_torch.models import snn_cnn
+
+    cfg = deploy_config("resnet18", 4, smoke=False)
+    jcfg = jdeploy_config("resnet18", 4, smoke=False)
+    jshapes = jax.eval_shape(lambda: jsnn.init(jax.random.PRNGKey(0), jcfg))
+    tparams = snn_cnn.init(0, cfg, device="cpu")
+    graph = build_graph(cfg)
+    assert jax.tree.structure(jshapes) == jax.tree.structure(tparams)
+    for spec in graph.param_specs():
+        jp, tp = jex.get_path(jshapes, spec.name), get_path(tparams,
+                                                           spec.name)
+        assert tuple(tp["w"].shape) == jp["w"].shape
+        assert tuple(tp["g"].shape) == jp["g"].shape
+        want = (2.0 / int(np.prod(tp["w"].shape[:-1]))) ** 0.5
+        assert abs(float(tp["w"].std()) - want) < 0.1 * want, spec.name
+        assert torch.equal(tp["g"], torch.ones_like(tp["g"]))
+    assert [b["stride"] for b in tparams["blocks"]] \
+        == [n.stride for n in jbuild_graph(jcfg).nodes
+            if type(n).__name__ == "Residual"]
+
+
 def test_port_save_loads_in_repro(tmp_path):
     """The port writes the same v2 format: repro's load reads it back and
     its packaged forward agrees with the port's within the logit
@@ -167,17 +194,35 @@ def test_port_save_loads_in_repro(tmp_path):
 
 
 def test_load_rejects_fusion_groups(tmp_path):
+    """A package that carries fusion groups (the name dates from before the
+    port lowered them) loads and serves: its groups are re-planned from
+    the cfg and its logits match repro's within the logit tolerance."""
+    from repro_torch.deploy import SNNEngineConfig, SNNRequest, SNNServeEngine
+
     cfg = jdeploy_config("vgg9", 4, fusion="auto")
-    model = jdeploy(jsnn.init(jax.random.PRNGKey(0), cfg), cfg)
-    path = model.save(str(tmp_path / "fused.npz"))
-    with pytest.raises(ValueError, match="fused_group"):
-        load(path, device="cpu")
+    jmodel = jdeploy(jsnn.init(jax.random.PRNGKey(0), cfg), cfg)
+    path = jmodel.save(str(tmp_path / "fused.npz"))
+    tmodel = load(path, device="cpu")
+    assert [g.members for g in build_graph(tmodel.cfg).groups] \
+        == [g.members for g in jbuild_graph(cfg).groups]
+    images = _images(cfg, n=2, seed=4)
+    eng = SNNServeEngine(tmodel, SNNEngineConfig(max_batch=2), device="cpu")
+    for uid, img in enumerate(images):
+        eng.add_request(SNNRequest(uid=uid, image=img))
+    assert eng.run_until_done()["requests"] == 2
+    jlogits = np.asarray(jmodel.apply(jnp.asarray(images)))
+    for uid in range(2):
+        np.testing.assert_allclose(eng.done[uid].logits, jlogits[uid],
+                                   rtol=1e-5, atol=1e-5)
 
 
 def test_unported_paths_raise():
+    """What is still unported raises instead of running another way: the
+    float/BPTT forward (executor_for without the integer path)."""
+    from repro_torch.models import snn_cnn
     from repro_torch.models.snn_cnn import SNNConfig
 
-    with pytest.raises(NotImplementedError, match="resnet18"):
-        build_graph(SNNConfig(model="resnet18"))
-    with pytest.raises(NotImplementedError, match="fused_group"):
-        build_graph(SNNConfig(model="vgg9", fusion="auto"))
+    cfg = SNNConfig(model="resnet18", img_size=16, scale=0.15)
+    with pytest.raises(NotImplementedError, match="float/BPTT"):
+        snn_cnn.apply(snn_cnn.init(0, cfg, device="cpu"), cfg,
+                      torch.zeros((1, 16, 16, 3)))

@@ -94,6 +94,7 @@ def test_wrappers_refuse_devices_they_have_no_kernel_for():
     """Dispatch is by the tensor's device: CPU takes the plain version,
     CUDA the kernel, anything else raises (no silent plain fallback)."""
     from repro_torch.kernels.fused_conv import ops as conv_ops
+    from repro_torch.kernels.fused_group import ops as group_ops
     from repro_torch.kernels.fused_nce import ops as nce_ops
     from repro_torch.quant.formats import PrecisionConfig
     from repro_torch.quant.ptq import quantize, quantize_conv
@@ -108,3 +109,7 @@ def test_wrappers_refuse_devices_they_have_no_kernel_for():
         nce_ops.fused_nce_rollout(
             torch.zeros((1, 2, 2), dtype=torch.int32, device="meta"), qt,
             d_in=64, leak_shift=3, threshold_q=3)
+    with pytest.raises(ValueError, match="unsupported device"):
+        group_ops.fused_group_rollout(
+            torch.zeros((1, 1, 4, 4, 1), dtype=torch.int32, device="meta"),
+            (("conv", qct, 3), ("conv", qct, 3)), leak_shift=3)
