@@ -29,12 +29,42 @@
    Every request's logits must equal the same forward walked layer by
    layer with the plain versions on the card (TF32 off for both), and
    every packed layer's input spike rate there must be > 0.
+4. The NCE step path (``NeuronComputeEngine.step`` = ``spike_matmul`` ->
+   ``lif_step`` -> pack) at vgg9's fc1 geometry (T=4, B=8, 4096->512,
+   W2/4/8) and kernel_bench's NCE geometry (T=8, B=64, 2048->2048, W8 and
+   W2), 20% input density, both resets: each kernel bit-exact against its
+   plain version, ``rollout_unfused`` equal bit for bit to ``rollout``
+   (``fused_nce``) and to the plain rollout, and T launches of each
+   kernel per unfused rollout.
+5. olmo-1b at full width (16 layers, d 2048, d_ff 8192, vocab 50304,
+   bf16), random weights from seed 0, every linear packed to W4 (one
+   scale per output row) with the port's ``quantize``:
+   - served by ``ServeEngine(slots=8, max_len=1024)`` with a bf16 KV
+     cache: 16 requests, prompts of 16-256 tokens from
+     ``numpy.random.default_rng(0)``, 32 new tokens each; 112
+     ``packed_qmatmul`` launches per prefill and per decode step;
+   - with an INT4 KV cache: a uniform batch of 8 prompts of 512 tokens,
+     the prefill cache padded to 1024, 32 ``decode_step(ragged=False)``
+     steps; 16 ``kv_attention`` launches per step;
+   every logit vector is compared with the same request re-run
+   teacher-forced through the plain versions on the card (TF32 off):
+   relative RMS error and max error over the plain logits' largest
+   magnitude <= 0.10 / 0.15 with the bf16 cache and <= 0.25 / 0.30 with
+   the INT4 cache, at every step (bf16 rounding noise through 16 layers,
+   which flips INT4 KV codes; a wrong kernel is off by ~1); beside it the
+   same measures of a float64-summed plain re-run against the float32
+   one (the floor summation order alone makes), the greedy-token
+   agreement, the share of packed KV words that differ after prefill,
+   and a profile of a decode step.  Each LM kernel is also held against
+   its plain version and timed at the shapes of a decode step
+   (``kv_attention`` also with a sliding window and a logit cap).
 
 Exits non-zero on any failure and without a card.  The line before the
 last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -44,6 +74,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, same source
+H100_BF16_OPS_PER_S = 989e12   # dense bf16 tensor-core peak, same source
+# float32 outside the tensor cores, same source; it stands in for the
+# elementwise int32 LIF step, for which the data sheet gives no rate
+H100_FP32_OPS_PER_S = 67e12
 
 
 def _median_ms(fn, iters=20, reps=5):
@@ -88,9 +122,9 @@ def _device_ms(fn, match="", reps=10):
     return us / reps / 1e3
 
 
-def _bound_ms(nbytes, adds):
+def _bound_ms(nbytes, ops, ops_per_s=H100_INT8_OPS_PER_S):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = adds / H100_INT8_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), t_bytes, t_ops
 
 
@@ -377,6 +411,547 @@ def group_phase(dev, gen, chains, main_names):
     return rows, max_err
 
 
+def nce_step_phase(dev, gen):
+    """The NCE step path: spike_matmul and lif_step against their plain
+    versions, the unfused rollout (T steps of both) against the fused one
+    and the plain one, all bit-exact; then the main-path run (one unfused
+    rollout per geometry at its main precision) with the launch counts,
+    and each kernel's time, bound and yardsticks at those shapes."""
+    import torch
+
+    from repro_torch.core import packing
+    from repro_torch.core.nce import NCEConfig, NeuronComputeEngine
+    from repro_torch.kernels.fused_nce.ref import fused_nce_rollout_torch
+    from repro_torch.kernels.lif_step import ops as lif_ops
+    from repro_torch.kernels.lif_step.ref import lif_step_ref
+    from repro_torch.kernels.spike_matmul import ops as sm_ops
+    from repro_torch.kernels.spike_matmul.ref import spike_matmul_ref
+    from repro_torch.quant.formats import PrecisionConfig
+
+    # name: (T, B, d_in, d_out, widths, the width timed and counted)
+    geoms = {"fc1": (4, 8, 4096, 512, (2, 4, 8), 4),
+             "bench": (8, 64, 2048, 2048, (8, 2), 8)}
+    checks, main = 0, {}
+    for name, (t_steps, b, d_in, d_out, widths, main_bits) in geoms.items():
+        s = torch.rand((t_steps, b, d_in), generator=gen) < 0.2
+        sp = packing.pack_bool(s).to(dev)
+        wf = (torch.randn((d_in, d_out), generator=gen) * 0.05).to(dev)
+        for bits in widths:
+            pc = PrecisionConfig(bits=bits)
+            weights = NeuronComputeEngine.from_float(NCEConfig(precision=pc),
+                                                     wf).weights
+            codes = packing.unpack(weights.data, bits, d_in).float()
+            # one threshold for the layer, at the expected current's spread
+            theta = max(2, int(float(codes.std()) * (0.2 * d_in) ** 0.5))
+            for soft in (True, False):
+                eng = NeuronComputeEngine(
+                    NCEConfig(precision=pc, threshold_q=theta,
+                              soft_reset=soft), weights)
+                label = f"NCE {name} w{bits} soft={soft}"
+                ik = sm_ops.spike_matmul(sp[0], weights, d_in=d_in)
+                ip = spike_matmul_ref(sp[0], weights, d_in=d_in)
+                v = torch.randint(-2 * theta, 2 * theta, (b, d_out),
+                                  generator=gen).to(torch.int32).to(dev)
+                kw = dict(leak_shift=3, threshold_q=theta, v_reset_q=-3,
+                          soft_reset=soft)
+                lv, ls = lif_ops.lif_step(v, ik, **kw)
+                pv, ps = lif_step_ref(v, ip, **kw)
+                uv, us = eng.rollout_unfused(sp)
+                fv, fs = eng.rollout(sp)
+                qv, qs = fused_nce_rollout_torch(
+                    sp, weights, d_in=d_in, leak_shift=3, threshold_q=theta,
+                    soft_reset=soft)
+                torch.cuda.synchronize()
+                for what, a, c in (("spike_matmul", ik, ip),
+                                   ("lif_step v", lv, pv),
+                                   ("lif_step s", ls, ps),
+                                   ("unfused v vs fused", uv, fv),
+                                   ("unfused s vs fused", us, fs),
+                                   ("unfused v vs plain", uv, qv),
+                                   ("unfused s vs plain", us, qs)):
+                    if not torch.equal(a, c):
+                        raise AssertionError(f"{label}: {what} differ")
+                rate = float(packing.unpack_bool(us, d_out).float().mean())
+                if not 0.0 < rate < 1.0 or not 0 < int(ls.sum()) < ls.numel():
+                    raise AssertionError(f"{label}: vacuous output rates "
+                                         f"{rate}, {float(ls.float().mean())}")
+                checks += 1
+                if bits == main_bits and soft:
+                    main[name] = (eng, s, sp, rate)
+    print(f"NCE step path: {checks} configurations bit-exact (spike_matmul, "
+          f"lif_step, rollout_unfused == rollout == plain)", flush=True)
+
+    # the main path: NeuronComputeEngine.step over T, counts read around it
+    sm_ops.spike_matmul.launches = lif_ops.lif_step.launches = 0
+    for eng, _, sp, _ in main.values():
+        eng.rollout_unfused(sp)
+    torch.cuda.synchronize()
+    launches = {"spike_matmul": sm_ops.spike_matmul.launches,
+                "lif_step": lif_ops.lif_step.launches}
+    want = sum(geoms[n][0] for n in main)
+    if launches != {"spike_matmul": want, "lif_step": want}:
+        raise AssertionError(f"NCE main path: launches {launches}, expected "
+                             f"T = {want} of each over the rollouts")
+    print(f"NCE main path (rollout_unfused, fc1 w4 + bench w8): launches "
+          f"{launches}", flush=True)
+
+    rows = {"spike_matmul": {}, "lif_step": {}}
+    for name, (eng, s, sp, rate) in main.items():
+        t_steps, b, d_in, d_out = geoms[name][:4]
+        qt = eng.weights
+        run = lambda: sm_ops.spike_matmul(sp[0], qt, d_in=d_in)
+        ms = _device_ms(run, "spike_matmul_kernel")
+        plain_ms = _device_ms(lambda: spike_matmul_ref(sp[0], qt, d_in=d_in),
+                              reps=3)
+        x16 = s[0].to(dev, torch.float16)
+        w16 = packing.unpack(qt.data, qt.bits, d_in).T.to(torch.float16) \
+            .contiguous()
+        lib_ms = _device_ms(lambda: torch.matmul(x16, w16))
+        adds = float(s[0].sum()) * d_out
+        nbytes = 4 * (sp[0].numel() + qt.data.numel() + b * d_out)
+        bound, t_b, t_o = _bound_ms(nbytes, adds)
+        rows["spike_matmul"][name] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+            bytes_ms=t_b, ops_ms=t_o)
+        print(f"  spike_matmul {name:<5} m={b} {d_in}->{d_out} w{qt.bits}: "
+              f"kernel {ms:.4f} ms (wrapper call {_median_ms(run):.4f} ms "
+              f"wall) | plain {plain_ms:.4f} ms | fp16 matmul {lib_ms:.4f} "
+              f"ms | bound {bound:.5f} ms (bytes {t_b:.5f}, adds {t_o:.5f}; "
+              f"{nbytes} B, {adds:.3e} adds) | rollout out rate {rate:.3f}",
+              flush=True)
+        theta = eng.cfg.threshold_q
+        v = torch.randint(-2 * theta, 2 * theta, (b, d_out),
+                          generator=gen).to(torch.int32).to(dev)
+        i = run()
+        kw = dict(leak_shift=3, threshold_q=theta)
+        run = lambda: lif_ops.lif_step(v, i, **kw)
+        ms = _device_ms(run, "lif_step_kernel")
+        plain_ms = _device_ms(lambda: lif_step_ref(v, i, **kw), reps=3)
+        nbytes = 16 * v.numel()      # read v and i, write v' and s
+        bound, t_b, t_o = _bound_ms(nbytes, 5 * v.numel(),
+                                    H100_FP32_OPS_PER_S)
+        rows["lif_step"][name] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
+            bytes_ms=t_b, ops_ms=t_o)
+        print(f"  lif_step {name:<5} ({b}, {d_out}): kernel {ms:.4f} ms "
+              f"(wrapper call {_median_ms(run):.4f} ms wall) | plain "
+              f"{plain_ms:.4f} ms | bound {bound:.6f} ms (bytes {t_b:.6f}, "
+              f"ops {t_o:.6f})", flush=True)
+    return rows, launches
+
+
+def pack_lm(params, bits):
+    """Every linear of the LM packed to ``bits`` with one scale per output
+    row (the port's ``quantize`` on W.T, as NeuronComputeEngine.from_float
+    packs); the dense weights are dropped as each layer is packed."""
+    from repro_torch.quant.formats import PrecisionConfig
+    from repro_torch.quant.ptq import quantize
+
+    pc = PrecisionConfig(bits=bits, group_size=-1)
+    for lp in params["layers"]:
+        for blk in ("attn", "mlp"):
+            for lin in lp[blk].values():
+                lin["w"] = quantize(lin["w"].T.float(), pc)
+    return params
+
+
+@contextlib.contextmanager
+def plain_kernels(dtype=None):
+    """Route the LM's two kernel wrappers to their plain versions: the
+    model code is unchanged and calls them through their modules.  The
+    plain qmatmul keeps each tensor's dequantized float32 weight (what
+    ``dequant_w`` returns every call, computed once: 4.3 GB for olmo-1b)
+    so the teacher-forced runs do not unpack 537 MB of codes per step.
+    ``dtype=torch.float64`` sums the packed matmuls in float64 instead:
+    the difference between that run and the float32 one is the noise a
+    change of summation alone makes, the floor any kernel is held to."""
+    import torch
+
+    from repro_torch.kernels.kv_attention import ops as kv_ops
+    from repro_torch.kernels.kv_attention import ref as kv_ref
+    from repro_torch.kernels.packed_qmatmul import ops as qmm_ops
+    from repro_torch.kernels.packed_qmatmul import ref as qmm_ref
+
+    dtype = dtype or torch.float32
+    dense = {}
+
+    def qmatmul(x, qt):
+        w = dense.get(id(qt))
+        if w is None:
+            w = dense[id(qt)] = qmm_ref.dequant_w(qt).to(dtype)
+        return torch.matmul(x.to(dtype), w.T).to(x.dtype)
+
+    saved = (qmm_ops.qmatmul, kv_ops.quant_kv_decode_attention)
+    qmm_ops.qmatmul = qmatmul
+    kv_ops.quant_kv_decode_attention = kv_ref.quant_kv_decode_attention_ref
+    try:
+        yield
+    finally:
+        qmm_ops.qmatmul, kv_ops.quant_kv_decode_attention = saved
+
+
+def _pad_cache(cache, max_len):
+    import torch.nn.functional as F
+
+    out = dict(cache)
+    for k, v in cache.items():
+        if k != "len":
+            out[k] = F.pad(v, (0, 0) * (v.ndim - 3) +
+                           (0, max_len - v.shape[2]))
+    return out
+
+
+class LogitCheck:
+    """Kernel-path logits against the plain path's, step by step: the
+    relative RMS error (over the vocabulary) and the max |error| over the
+    plain logits' largest magnitude must stay within ``rms`` and ``mx``.
+
+    Both paths are bf16 models.  Their packed matmuls sum in other orders,
+    a bf16 output then sometimes rounds to its neighbour (2^-8 relative),
+    and that noise grows through 16 layers; with a packed KV cache it
+    also flips INT4 codes (a whole code step) wherever a K or V value sits
+    near a rounding boundary.  The limits are stated per phase; beside
+    each, the same check of a float64-summed plain run against the
+    float32 one shows the floor that summation order alone makes.  A
+    wrong kernel is off by ~1."""
+
+    def __init__(self, label, rms, mx):
+        self.label, self.lim_rms, self.lim_max = label, rms, mx
+        self.rms, self.max, self.agree, self.n = 0., 0., 0, 0
+
+    def add(self, got, ref, where):
+        import numpy as np
+
+        got = np.asarray(got, np.float64)
+        ref = np.asarray(ref, np.float64)
+        if got.shape != ref.shape or not np.isfinite(got).all():
+            raise AssertionError(f"{self.label} {where}: bad logits "
+                                 f"{got.shape}")
+        d = got - ref
+        rms = float(np.sqrt((d ** 2).mean() / (ref ** 2).mean()))
+        mx = float(np.abs(d).max() / np.abs(ref).max())
+        if self.lim_rms is not None and (rms > self.lim_rms
+                                         or mx > self.lim_max):
+            raise AssertionError(
+                f"{self.label} {where}: logits off the plain path's by "
+                f"relative RMS {rms:.4f} (limit {self.lim_rms}), max "
+                f"{mx:.4f} (limit {self.lim_max})")
+        self.rms, self.max = max(self.rms, rms), max(self.max, mx)
+        self.agree += int(np.argmax(got) == np.argmax(ref))
+        self.n += 1
+
+    def summary(self):
+        within = ("" if self.lim_rms is None else
+                  f" within tolerance (relative RMS <= {self.lim_rms}, max "
+                  f"<= {self.lim_max})")
+        return (f"{self.n} logit vectors{within} of the plain path "
+                f"(worst relative RMS {self.rms:.4f}, worst max "
+                f"{self.max:.4f}); greedy-token agreement "
+                f"{self.agree}/{self.n} ({100 * self.agree / self.n:.1f}%)")
+
+
+def lm_serve_phase(dev, cfg, params):
+    """olmo-1b W4 served by the engine (bf16 KV): 16 requests, counts of
+    packed_qmatmul launches, throughput, latency, and every request's
+    logits against a teacher-forced plain-path re-run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.kv_attention import ops as kv_ops
+    from repro_torch.kernels.packed_qmatmul import ops as qmm_ops
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    eng = ServeEngine(cfg, params, EngineConfig(slots=8, max_len=1024,
+                                                keep_logits=True),
+                      device=dev)
+    eng.add_request(Request(uid=-1, prompt=np.arange(16, dtype=np.int32),
+                            max_new_tokens=2))      # warm-up, not counted
+    eng.run_until_done()
+    eng.done.clear()
+    rng = np.random.default_rng(0)
+    reqs = []
+    for uid in range(16):
+        plen = int(rng.integers(16, 257))
+        reqs.append(Request(uid=uid, prompt=rng.integers(
+            0, cfg.vocab, plen).astype(np.int32), max_new_tokens=32))
+    per_fwd = 7 * cfg.n_layers
+    qmm_ops.qmatmul.launches = 0
+    kv_ops.quant_kv_decode_attention.launches = 0
+    for r in reqs:
+        eng.add_request(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"packed_qmatmul": qmm_ops.qmatmul.launches,
+                "kv_attention": kv_ops.quant_kv_decode_attention.launches}
+    steps = stats["decode_steps"]
+    want = {"packed_qmatmul": per_fwd * (len(reqs) + steps),
+            "kv_attention": 0}
+    if launches != want or stats["incomplete"] or stats["requests"] != 16:
+        raise AssertionError(f"olmo serve: launches {launches} (expected "
+                             f"{want}: {per_fwd} per prefill and per decode "
+                             f"step), stats {stats}")
+    n_qmm = launches["packed_qmatmul"]
+    lat = sorted(r.latency_s * 1e3 for r in reqs)
+    p50 = float(np.percentile(lat, 50))
+    p95 = float(np.percentile(lat, 95))
+    print(f"olmo-1b W4 serve (bf16 KV, slots=8, max_len=1024): 16 requests, "
+          f"prompts {min(len(r.prompt) for r in reqs)}-"
+          f"{max(len(r.prompt) for r in reqs)} tokens, "
+          f"{stats['generated_tokens']} tokens in {steps} decode steps: "
+          f"{stats['generated_tokens'] / wall:.1f} tokens/s end to end "
+          f"({wall * 1e3:.1f} ms wall), request latency p50 {p50:.1f} ms, "
+          f"p95 {p95:.1f} ms; packed_qmatmul launches {n_qmm} = {per_fwd} "
+          f"x 16 prefills + {(n_qmm - per_fwd * 16) / steps:.0f} per decode "
+          f"step x {steps}", flush=True)
+
+    def teacher_forced(dtype=None):
+        """Each request re-run alone through the plain path, fed the
+        engine's tokens: its logits at every sampled position."""
+        out = []
+        with plain_kernels(dtype):
+            for r in reqs:
+                toks = torch.as_tensor(r.prompt[None], dtype=torch.int64,
+                                       device=dev)
+                logits, cache = transformer.prefill(params, cfg, toks)
+                seq = [logits[0].cpu().numpy()]
+                cache = _pad_cache(cache, len(r.prompt) + len(r.output))
+                for t in range(1, len(r.output)):
+                    tok = torch.tensor([[r.output[t - 1]]],
+                                       dtype=torch.int64, device=dev)
+                    logits, cache = transformer.decode_step(params, cfg,
+                                                            cache, tok)
+                    seq.append(logits[0].cpu().numpy())
+                out.append(seq)
+        return out
+
+    check = LogitCheck("olmo serve", 0.10, 0.15)
+    floor = LogitCheck("olmo serve float64 plain", None, None)
+    for r, ref, ref64 in zip(reqs, teacher_forced(),
+                             teacher_forced(torch.float64)):
+        for t, (got, want, want64) in enumerate(zip(r.logits, ref, ref64)):
+            check.add(got, want, f"request {r.uid} position {t}")
+            floor.add(want64, want, f"request {r.uid} position {t}")
+    print(f"olmo serve teacher-forced on the plain path: {check.summary()}",
+          flush=True)
+    print(f"  floor, the float64-summed plain path against the float32 one: "
+          f"{floor.summary()}", flush=True)
+    toks = torch.as_tensor(eng.last_token[:, None], dtype=torch.int64,
+                           device=dev)
+    print("olmo-1b decode step, 8 ragged slots, bf16 KV:", flush=True)
+    profile_calls(lambda: transformer.decode_step(params, cfg, eng.cache,
+                                                  toks, ragged=True),
+                  "decode step")
+    return launches, dict(tokens_per_s=stats["generated_tokens"] / wall,
+                          p50_ms=p50, p95_ms=p95)
+
+
+def lm_int4_kv_phase(dev, cfg, params):
+    """olmo-1b W4 with an INT4 KV cache: a uniform batch of 8 x 512-token
+    prompts, prefill padded to 1024, 32 uniform decode steps; launch
+    counts, throughput, and the logits against the plain path."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.kv_attention import ops as kv_ops
+    from repro_torch.kernels.packed_qmatmul import ops as qmm_ops
+    from repro_torch.models import transformer
+
+    cfg4 = dataclasses.replace(cfg, kv_cache_bits=4)
+    b, s_len, max_len, n_steps = 8, 512, 1024, 32
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (b, s_len)), dtype=torch.int64, device=dev)
+
+    def run(feed=None):
+        """Prefill, pad, n_steps uniform decode steps (greedy, or fed the
+        tokens ``feed``).  Returns the logits at each step, the tokens
+        fed, the decode seconds, the prefill cache and the final cache."""
+        logits, pre = transformer.prefill(params, cfg4, toks)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cache = _pad_cache(pre, max_len)
+        out, fed = [logits.cpu().numpy()], []
+        for i in range(n_steps):
+            tok = (torch.argmax(logits, -1) if feed is None
+                   else feed[i]).reshape(b, 1)
+            fed.append(tok)
+            logits, cache = transformer.decode_step(params, cfg4, cache, tok)
+            out.append(logits.cpu().numpy())
+        torch.cuda.synchronize()
+        return out, fed, time.perf_counter() - t1, pre, cache
+
+    run()                                              # warm-up
+    per_fwd = 7 * cfg.n_layers
+    qmm_ops.qmatmul.launches = 0
+    kv_ops.quant_kv_decode_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, fed, decode_s, pre, cache = run()
+    wall = time.perf_counter() - t0
+    launches = {"packed_qmatmul": qmm_ops.qmatmul.launches,
+                "kv_attention": kv_ops.quant_kv_decode_attention.launches}
+    want = {"packed_qmatmul": per_fwd * (1 + n_steps),
+            "kv_attention": cfg.n_layers * n_steps}
+    if launches != want:
+        raise AssertionError(f"olmo INT4 KV: launches {launches}, expected "
+                             f"{want}")
+    print(f"olmo-1b W4 + INT4 KV, uniform batch {b} x {s_len} prompt, "
+          f"{n_steps} decode steps: prefill {(wall - decode_s) * 1e3:.1f} "
+          f"ms, decode {decode_s / n_steps * 1e3:.2f} ms/step "
+          f"({b * n_steps / decode_s:.1f} tokens/s); launches {launches} "
+          f"({launches['kv_attention'] // n_steps} kv_attention per step)",
+          flush=True)
+    with plain_kernels():
+        ref, _, _, ref_pre, _ = run(feed=fed)
+    with plain_kernels(torch.float64):
+        ref64, _, _, _, _ = run(feed=fed)
+    flips = {k: float((pre[k] != ref_pre[k]).float().mean())
+             for k in ("k", "v")}
+    # INT4 codes flip where the two paths' bf16 K/V straddle a rounding
+    # boundary, so the limits are wider than with the bf16 cache
+    check = LogitCheck("olmo INT4 KV", 0.25, 0.30)
+    floor = LogitCheck("olmo INT4 KV float64 plain", None, None)
+    for i, (g, r, r64) in enumerate(zip(got, ref, ref64)):
+        for row in range(b):
+            check.add(g[row], r[row], f"step {i} row {row}")
+            floor.add(r64[row], r[row], f"step {i} row {row}")
+    print(f"olmo INT4 KV teacher-forced on the plain path: "
+          f"{check.summary()}; packed KV words after prefill that differ "
+          f"from the plain path's: K {100 * flips['k']:.2f}%, V "
+          f"{100 * flips['v']:.2f}%", flush=True)
+    print(f"  floor, the float64-summed plain path against the float32 one: "
+          f"{floor.summary()}", flush=True)
+    tok = fed[-1]
+    print("olmo-1b decode step, uniform batch 8, INT4 KV:", flush=True)
+    profile_calls(lambda: transformer.decode_step(params, cfg4, cache, tok),
+                  "decode step")
+    return launches, dict(decode_tokens_per_s=b * n_steps / decode_s)
+
+
+def lm_kernel_phase(dev, cfg, params):
+    """packed_qmatmul and kv_attention against their plain versions and
+    timed at a decode step's shapes: the 7 linears of one layer at M=8
+    (bf16 x) and one kv_attention call over an INT4 cache like the
+    uniform-batch phase's (8 x 544 live keys of 1024), with a sliding
+    window and a logit cap checked beside.  As on the served path, the
+    data is cold: each timed call takes the next layer's weights (33.6 MB
+    a layer, 537 MB in all) or the next of 8 caches (144 MB), more than
+    the 50 MB L2 holds."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.kv_attention import ops as kv_ops
+    from repro_torch.kernels.kv_attention import ref as kv_ref
+    from repro_torch.kernels.packed_qmatmul import ops as qmm_ops
+    from repro_torch.kernels.packed_qmatmul import ref as qmm_ref
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    layers = [[lin["w"] for blk in ("attn", "mlp") for lin in lp[blk].values()]
+              for lp in params["layers"]]
+    rows, errs = {}, {}
+    for m in (8, 256):
+        xs = [torch.randn((m, qt.shape[1]), generator=gen, device=dev,
+                          dtype=torch.bfloat16) for qt in layers[0]]
+        err = 0.0
+        for qts in (layers if m == 8 else layers[:1]):
+            for x, qt in zip(xs, qts):
+                got = qmm_ops.qmatmul(x, qt).float()
+                ref = qmm_ref.qmatmul_ref(x, qt).float()
+                # the CUDA test's tolerance: a bf16 ulp + 1e-4 of the scale
+                bad = float(((got - ref).abs() - 2.0 ** -7 * ref.abs()).max())
+                if bad > 1e-4 * float(ref.abs().max()):
+                    raise AssertionError(f"packed_qmatmul m={m} {qt.shape}: "
+                                         f"off the plain version")
+                err = max(err, float((got - ref).abs().max()))
+        order = itertools.cycle(range(len(layers)))
+        run = lambda: [qmm_ops.qmatmul(x, qt)
+                       for x, qt in zip(xs, layers[next(order)])]
+        ms = _device_ms(run, "qmatmul_kernel")
+        plain_ms = _device_ms(
+            lambda: [qmm_ref.qmatmul_ref(x, qt)
+                     for x, qt in zip(xs, layers[next(order)])], reps=3)
+        dense = [[qmm_ref.dequant_w(qt).T.to(torch.bfloat16).contiguous()
+                  for qt in qts] for qts in layers]
+        lib_ms = _device_ms(lambda: [torch.matmul(x, w) for x, w in
+                                     zip(xs, dense[next(order)])])
+        del dense
+        nbytes = sum(4 * (qt.data.numel() + qt.scale.numel())
+                     + 2 * m * (qt.shape[0] + qt.shape[1])
+                     for qt in layers[0])
+        flops = sum(2 * m * qt.shape[0] * qt.shape[1] for qt in layers[0])
+        bound, t_b, t_o = _bound_ms(nbytes, flops, H100_BF16_OPS_PER_S)
+        checked = f"all {len(layers)} layers" if m == 8 else "layer 0"
+        print(f"  packed_qmatmul layer (7 linears) m={m} w4 bf16, cold: "
+              f"kernel {ms:.4f} ms (wrapper calls {_median_ms(run):.4f} ms "
+              f"wall) | plain {plain_ms:.4f} ms | bf16 matmul on dequantized "
+              f"weights {lib_ms:.4f} ms | bound {bound:.5f} ms (bytes "
+              f"{t_b:.5f}, flops {t_o:.5f}; {nbytes} B) | max |err| "
+              f"{err:.3e} ({checked})", flush=True)
+        if m == 8:
+            rows["packed_qmatmul"] = {"decode layer": dict(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                bytes_ms=t_b, ops_ms=t_o)}
+            errs["packed_qmatmul"] = err
+
+    b, s_len, kh, hd, bits, live = 8, 1024, cfg.n_kv, cfg.head_dim, 4, 544
+    h = cfg.n_heads
+    q = torch.randn((b, 1, h, hd), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    caches = []
+    for _ in range(8):
+        k = torch.randn((b, s_len, kh, hd), generator=gen, device=dev)
+        v = torch.randn((b, s_len, kh, hd), generator=gen, device=dev)
+        caches.append(kv_ref.quantize_kv(k, bits) + kv_ref.quantize_kv(v, bits))
+    kp, ks, vp, vs = caches[0]
+    err = 0.0
+    for window, cap in ((0, None), (256, None), (0, 50.0), (256, 50.0)):
+        kw = dict(bits=bits, scale=hd ** -0.5, cache_len=live, window=window,
+                  logit_cap=cap)
+        got = kv_ops.quant_kv_decode_attention(q, kp, ks, vp, vs, **kw)
+        ref = kv_ref.quant_kv_decode_attention_ref(q, kp, ks, vp, vs, **kw)
+        torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                                   rtol=2e-2)
+        if window == 0 and cap is None:
+            err = float((got.float() - ref.float()).abs().max())
+    kw = dict(bits=bits, scale=hd ** -0.5, cache_len=live)
+    order = itertools.cycle(range(len(caches)))
+    run = lambda: kv_ops.quant_kv_decode_attention(
+        q, *caches[next(order)], **kw)
+    ms = _device_ms(run, "kv_attention_kernel")
+    plain_ms = _device_ms(lambda: kv_ref.quant_kv_decode_attention_ref(
+        q, *caches[next(order)], **kw), reps=3)
+    dense = [[kv_ref.dequantize_kv(p[:, :live], sc[:, :live], bits, hd)
+              .transpose(1, 2).contiguous() for p, sc in ((c[0], c[1]),
+                                                         (c[2], c[3]))]
+             for c in caches]
+    qd = q.transpose(1, 2).contiguous()
+    lib_ms = _device_ms(lambda: F.scaled_dot_product_attention(
+        qd, *dense[next(order)], scale=hd ** -0.5))
+    nbytes = (b * live * kh * (2 * kp.shape[-1] * 4 + 2 * 4)
+              + 2 * q.numel() * 2)
+    flops = 4 * b * h * live * hd
+    bound, t_b, t_o = _bound_ms(nbytes, flops, H100_BF16_OPS_PER_S)
+    rows["kv_attention"] = {"decode": dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+        bytes_ms=t_b, ops_ms=t_o)}
+    errs["kv_attention"] = err
+    print(f"  kv_attention B={b} H={h} K={kh} hd={hd} int4, {live} of "
+          f"{s_len} keys live, cold: kernel {ms:.4f} ms (wrapper call "
+          f"{_median_ms(run):.4f} ms wall) | plain {plain_ms:.4f} ms | "
+          f"sdpa on the dequantized bf16 cache {lib_ms:.4f} ms | bound "
+          f"{bound:.5f} ms (bytes {t_b:.5f}, flops {t_o:.6f}; {nbytes} B) | "
+          f"max |err| {err:.3e}; window 256 and logit cap 50 within "
+          f"tolerance", flush=True)
+    return rows, errs
+
+
 def plain_forward(model, images):
     """The packaged forward walked layer by layer with the plain kernel
     versions (fusion groups lowered member by member), recording each
@@ -440,24 +1015,23 @@ def plain_forward(model, images):
     raise AssertionError("graph has no readout")
 
 
-def profile_batch(model, x, reps=5):
-    """Where a B=8 packaged forward spends device time: torch.profiler
-    over ``reps`` forwards, the top ops by device time, and the device's
-    busy share of the wall time."""
+def profile_calls(fn, what, reps=5):
+    """Where ``fn`` spends device time: torch.profiler over ``reps`` calls
+    (after one warm-up call), the top kernels by device time, and the
+    device's busy share of the wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
-        model.apply(x)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                model.apply(x)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+        wall_us = (time.perf_counter() - t0) * 1e6
     rows = sorted(((e.self_device_time_total, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
@@ -466,14 +1040,25 @@ def profile_batch(model, x, reps=5):
     if not rows:
         print("profile: no device time reported (not measured)", flush=True)
         return
-    print(f"profile of {reps} B=8 forwards: wall {wall_us / reps:.1f} us "
-          f"per forward, device busy {busy_us / reps:.1f} us "
+    print(f"profile of {reps} {what}s: wall {wall_us / reps:.1f} us per "
+          f"{what}, device busy {busy_us / reps:.1f} us "
           f"({100 * busy_us / wall_us:.1f}% of wall, the profiler's own "
-          f"host cost included); top kernels (us per forward, launches "
-          f"per forward):", flush=True)
+          f"host cost included); top kernels (us per {what}, launches "
+          f"per {what}):", flush=True)
     for dev_us, count, key in rows[:12]:
         print(f"  {dev_us / reps:9.1f}  {count // reps:4d}  {key[:90]}",
               flush=True)
+
+
+def profile_batch(model, x, reps=5):
+    """Where a B=8 packaged forward spends device time."""
+    import torch
+
+    def forward():
+        with torch.inference_mode():
+            model.apply(x)
+
+    profile_calls(forward, "B=8 forward", reps)
 
 
 def serve_phase(dev, model_name, fusion, per_batch, same_as=None):
@@ -650,6 +1235,12 @@ def main() -> int:
                            "blocks.4.conv1", "blocks.4.conv2",
                            "blocks.4.proj", "blocks.6.conv1",
                            "blocks.6.conv2", "blocks.6.proj"]},
+        # per unfused rollout step of each geometry; per decode step
+        "nce step": {"spike_matmul": ["fc1", "bench"],
+                     "lif_step": ["fc1", "bench"]},
+        "olmo serve": {"packed_qmatmul": ["decode layer"] * 16},
+        "olmo int4-kv": {"packed_qmatmul": ["decode layer"] * 16,
+                         "kv_attention": ["decode"] * 16},
     }
 
     def main_names(kernel):
@@ -662,7 +1253,10 @@ def main() -> int:
         dev, gen, nce_geoms, main_names("fused_nce"))
     rows["fused_group"], errs["fused_group"] = group_phase(
         dev, gen, group_chains, main_names("fused_group"))
-    runs = {}
+    rows_nce, runs = nce_step_phase(dev, gen)
+    rows.update(rows_nce)
+    errs["spike_matmul"] = errs["lif_step"] = 0   # asserted bit-exact
+    runs = {"nce step": runs}
     runs["vgg9 off"], flat_logits = serve_phase(
         dev, "vgg9", (), {"fused_conv": 4, "fused_nce": 1})
     runs["vgg9 auto"], _ = serve_phase(
@@ -670,27 +1264,48 @@ def main() -> int:
         same_as=flat_logits)
     runs["resnet18 auto"], _ = serve_phase(
         dev, "resnet18", "auto", {"fused_group": 5, "fused_conv": 9})
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    cfg = get_config("olmo-1b")
+    t0 = time.perf_counter()
+    params = pack_lm(transformer.init(0, cfg, device=dev), 4)
+    torch.cuda.synchronize()
+    print(f"olmo-1b full width ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.dtype}): init from seed "
+          f"0 and W4 packing of the {7 * cfg.n_layers} linears in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    lm_rows, lm_errs = lm_kernel_phase(dev, cfg, params)
+    rows.update(lm_rows)
+    errs.update(lm_errs)
+    runs["olmo serve"], _ = lm_serve_phase(dev, cfg, params)
+    runs["olmo int4-kv"], _ = lm_int4_kv_phase(dev, cfg, params)
     print("kernel record: ms, plain_ms, library_ms and bound_ms are device "
           "time per call (torch.profiler), summed over the distinct "
-          "geometries the main paths launch the kernel at (one call each); "
-          "launches are summed over the three served paths (16 requests, "
-          "2 batches each); paths gives each path's launches and its "
-          "kernel ms per B=8 forward", flush=True)
+          "geometries the main paths launch the kernel at (one call each; "
+          "packed_qmatmul: the 7 linears of one olmo-1b layer at M=8); "
+          "launches are summed over the paths that launch the kernel (the "
+          "three served SNN paths, 16 requests in 2 batches each; the NCE "
+          "step path's unfused rollouts; the two olmo-1b runs); paths gives "
+          "each path's launches and its kernel ms per B=8 forward (NCE: per "
+          "step of each geometry; olmo: per decode step)", flush=True)
 
     def record(name, source, replaces):
         kr = rows[name]
         t_b = sum(r["bytes_ms"] for r in kr.values())
         t_o = sum(r["ops_ms"] for r in kr.values())
+        lib = [r["library_ms"] for r in kr.values()]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces,
-                "launches": sum(run[name] for run in runs.values()),
+                "launches": sum(run.get(name, 0) for run in runs.values()),
                 "max_abs_err": errs[name],
                 "ms": sum(r["ms"] for r in kr.values()),
                 "plain_ms": sum(r["plain_ms"] for r in kr.values()),
                 "bound_ms": sum(r["bound_ms"] for r in kr.values()),
                 "bound_by": "bytes" if t_b >= t_o else "operations",
-                "library_ms": sum(r["library_ms"] for r in kr.values()),
-                "paths": {p: {"launches": runs[p][name],
+                "library_ms": None if None in lib else sum(lib),
+                "paths": {p: {"launches": runs[p].get(name, 0),
                               "ms": sum(kr[g]["ms"] for g in geo[name])}
                           for p, geo in paths.items() if name in geo}}
 
@@ -701,6 +1316,17 @@ def main() -> int:
                "src/repro/kernels/fused_nce/kernel.py:136"),
         record("fused_group", "src/repro_torch/kernels/csrc/fused_group.cu",
                "src/repro/kernels/fused_group/kernel.py:234"),
+        record("spike_matmul",
+               "src/repro_torch/kernels/csrc/spike_matmul.cu",
+               "src/repro/kernels/spike_matmul/kernel.py:81"),
+        record("lif_step", "src/repro_torch/kernels/csrc/lif_step.cu",
+               "src/repro/kernels/lif_step/kernel.py:67"),
+        record("packed_qmatmul",
+               "src/repro_torch/kernels/csrc/packed_qmatmul.cu",
+               "src/repro/kernels/packed_qmatmul/kernel.py:108"),
+        record("kv_attention",
+               "src/repro_torch/kernels/csrc/kv_attention.cu",
+               "src/repro/kernels/kv_attention/kernel.py:120"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

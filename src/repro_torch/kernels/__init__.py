@@ -13,6 +13,14 @@ launches.  The CUDA sources live in ``csrc/`` and are built by
               (replaces repro/kernels/fused_nce/kernel.py)
   fused_group all T timesteps of a chain of stride-1 convs and pools
               (replaces repro/kernels/fused_group/kernel.py)
+  spike_matmul  one AC step: packed spikes x packed codes -> int32
+              (replaces repro/kernels/spike_matmul/kernel.py)
+  lif_step    one elementwise shift-add LIF step
+              (replaces repro/kernels/lif_step/kernel.py)
+  packed_qmatmul  float x times packed 2/4/8-bit weights with scales
+              (replaces repro/kernels/packed_qmatmul/kernel.py)
+  kv_attention  one-token decode attention over a packed KV cache
+              (replaces repro/kernels/kv_attention/kernel.py)
 
 ``smem.py`` holds the shared-memory budget the fused_group wrapper and
 the fusion planner share.
@@ -21,5 +29,11 @@ the fusion planner share.
 from repro_torch.kernels.fused_conv import ops as fused_conv_ops  # noqa
 from repro_torch.kernels.fused_group import ops as fused_group_ops  # noqa
 from repro_torch.kernels.fused_nce import ops as fused_nce_ops  # noqa
+from repro_torch.kernels.kv_attention import ops as kv_attention_ops  # noqa
+from repro_torch.kernels.lif_step import ops as lif_step_ops  # noqa
+from repro_torch.kernels.packed_qmatmul import ops as packed_qmatmul_ops  # noqa
+from repro_torch.kernels.spike_matmul import ops as spike_matmul_ops  # noqa
 
-__all__ = ["fused_conv_ops", "fused_group_ops", "fused_nce_ops"]
+__all__ = ["fused_conv_ops", "fused_group_ops", "fused_nce_ops",
+           "kv_attention_ops", "lif_step_ops", "packed_qmatmul_ops",
+           "spike_matmul_ops"]

@@ -26,7 +26,8 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build" /
              "repro_torch_kernels")
-SOURCES = ("fused_conv", "fused_nce", "fused_group")
+SOURCES = ("fused_conv", "fused_nce", "fused_group", "spike_matmul",
+           "lif_step", "packed_qmatmul", "kv_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

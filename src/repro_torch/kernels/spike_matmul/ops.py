@@ -1,0 +1,100 @@
+"""Public entry point of spike-driven accumulation, dispatched by device.
+
+* a CPU tensor runs the plain PyTorch version (ref.py);
+* a CUDA tensor launches the hand-written kernel ``csrc/spike_matmul.cu``,
+  or raises.  There is no fallback from one to the other.
+
+Around the kernel, this wrapper flattens the leading dims to rows and,
+when ``d_in`` is not a multiple of 32, pads each weight row to
+``bits * ceil(d_in/32)`` words (zero words), so every spike word meets
+whole weight words.  The kernel masks the spike bits past ``d_in``, so
+stray bits there are inert, as in the plain version.
+
+``spike_matmul.launches`` counts kernel launches (and nothing else).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import packing
+from repro_torch.kernels import build as _build
+from repro_torch.kernels.spike_matmul import ref as _ref
+from repro_torch.quant.formats import QuantizedTensor
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("spike_matmul")
+    lib.spike_matmul_launch.argtypes = ([ctypes.c_void_p] * 3 +
+                                        [ctypes.c_int] * 5 +
+                                        [ctypes.c_void_p])
+    lib.spike_matmul_launch.restype = ctypes.c_int
+    lib.spike_matmul_error_string.argtypes = [ctypes.c_int]
+    lib.spike_matmul_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def spike_matmul(
+    spikes_packed: torch.Tensor,  # (..., ceil(d_in/32)) int32
+    qt: QuantizedTensor,          # packed (n, d_in) integer codes
+    *,
+    d_in: int,
+) -> torch.Tensor:
+    """Integer synaptic currents from packed spikes and packed weights.
+
+    Returns (..., n) int32, bit-exact with the plain version.
+    """
+    n = qt.shape[0]
+    kwords = spikes_packed.shape[-1]
+    if qt.shape[1] != d_in:
+        raise ValueError(f"weights have d_in={qt.shape[1]}, caller says "
+                         f"{d_in}")
+    if kwords != packing.packed_last_dim(d_in, 1):
+        raise ValueError(f"spikes carry {kwords} words per row, d_in={d_in} "
+                         f"needs {packing.packed_last_dim(d_in, 1)}")
+    wpr = packing.packed_last_dim(d_in, qt.bits)
+    if tuple(qt.data.shape) != (n, wpr):
+        raise ValueError(f"weights carry {tuple(qt.data.shape)} words, "
+                         f"{n} x {d_in} at {qt.bits} bits needs ({n}, {wpr})")
+    dev = spikes_packed.device
+    if dev.type == "cpu":
+        return _ref.spike_matmul_ref(spikes_packed, qt, d_in=d_in)
+    if dev.type != "cuda":
+        raise ValueError(f"spike_matmul: unsupported device {dev}")
+    if qt.data.device != dev:
+        raise ValueError(f"spike_matmul: weights on {qt.data.device}, spikes "
+                         f"on {dev}")
+
+    lead = spikes_packed.shape[:-1]
+    s2 = spikes_packed.reshape(-1, kwords).to(torch.int32).contiguous()
+    m = s2.shape[0]
+    out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    if m == 0 or n == 0:
+        return out.reshape(*lead, n)
+    if -(-m // 8) > 65535:
+        raise ValueError(f"spike_matmul: grid too large for {m} rows")
+    # whole weight words per spike word: bits words per 32 inputs
+    wpr_pad = qt.bits * kwords
+    w = F.pad(qt.data.to(torch.int32), (0, wpr_pad - wpr)).contiguous()
+    if w.data_ptr() % 16:          # the kernel loads weights 8-16 B at once
+        w = w.clone()
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.spike_matmul_launch(
+            s2.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, kwords, d_in,
+            qt.bits, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"spike_matmul kernel launch failed: CUDA error {err} "
+            f"({lib.spike_matmul_error_string(err).decode()})")
+    spike_matmul.launches += 1
+    return out.reshape(*lead, n)
+
+
+spike_matmul.launches = 0

@@ -48,6 +48,11 @@ class PrecisionConfig:
     def qmin(self) -> int:
         return -(1 << (self.bits - 1))
 
+    @property
+    def simd_lanes(self) -> int:
+        """Parallel low-bit ops per 32-bit word: 16/8/4 for 2/4/8-bit."""
+        return 32 // self.bits
+
 
 @dataclasses.dataclass
 class QuantizedTensor:
@@ -72,6 +77,10 @@ class QuantizedTensor:
     def n(self) -> int:
         """Logical length of the packed axis."""
         return self.shape[-1]
+
+    @property
+    def n_groups(self) -> int:
+        return 1 if self.group_size == -1 else self.n // self.group_size
 
     def to(self, device) -> "QuantizedTensor":
         return dataclasses.replace(

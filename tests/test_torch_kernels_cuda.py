@@ -8,8 +8,11 @@ conftest imports JAX):
     PYTHONPATH=src python -m pytest --noconftest -q \
         tests/test_torch_kernels_cuda.py
 
-Tolerance: none; membranes and packed spike words must be bit-exact, and
-each wrapper call must add exactly one to its launch counter.
+Tolerance: none for the integer kernels (fused_conv, fused_nce,
+fused_group, spike_matmul, lif_step): membranes, currents and packed
+spike words must be bit-exact.  The float kernels (packed_qmatmul,
+kv_attention) state theirs at each test.  Each wrapper call must add
+exactly one to its launch counter.
 """
 
 import numpy as np
@@ -23,6 +26,14 @@ from repro_torch.kernels.fused_group import ops as group_ops
 from repro_torch.kernels.fused_group.ref import fused_group_rollout_torch
 from repro_torch.kernels.fused_nce import ops as nce_ops
 from repro_torch.kernels.fused_nce.ref import fused_nce_rollout_torch
+from repro_torch.kernels.kv_attention import ops as kv_ops
+from repro_torch.kernels.kv_attention import ref as kv_ref
+from repro_torch.kernels.lif_step import ops as lif_ops
+from repro_torch.kernels.lif_step import ref as lif_ref
+from repro_torch.kernels.packed_qmatmul import ops as qmm_ops
+from repro_torch.kernels.packed_qmatmul import ref as qmm_ref
+from repro_torch.kernels.spike_matmul import ops as sm_ops
+from repro_torch.kernels.spike_matmul import ref as sm_ref
 from repro_torch.quant.formats import PrecisionConfig
 from repro_torch.quant.ptq import quantize, quantize_conv
 
@@ -161,3 +172,125 @@ def test_fused_group_empty_rollout_and_budget(cuda):
             torch.zeros((1, 1, 256, 256, 2), dtype=torch.int32,
                         device=cuda), big, leak_shift=3)
     assert group_ops.fused_group_rollout.launches == before
+
+
+# --- the NCE step kernels: bit-exact ------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d_in,d_out,bits", [
+    (8, 4096, 512, 4),      # vgg9 fc1, one step
+    (64, 2048, 2048, 8),    # kernel_bench NCE geometry
+    (64, 2048, 2048, 2),
+    (13, 75, 45, 2),        # ragged rows, d_in and d_out
+    (3, 1000, 100, 8),
+])
+def test_spike_matmul_kernel_matches_plain(cuda, m, d_in, d_out, bits):
+    spikes = _spikes((m, d_in), d_in + bits).to(cuda)
+    spikes[..., -1] |= -1 << (d_in % 32) if d_in % 32 else 0  # stray bits
+    wf = torch.from_numpy((np.random.default_rng(d_in).standard_normal(
+        (d_out, d_in)) * 0.2).astype(np.float32))
+    qt = quantize(wf, PrecisionConfig(bits=bits)).to(cuda)
+    ref = sm_ref.spike_matmul_ref(spikes, qt, d_in=d_in)
+    before = sm_ops.spike_matmul.launches
+    got = sm_ops.spike_matmul(spikes, qt, d_in=d_in)
+    torch.cuda.synchronize()
+    assert sm_ops.spike_matmul.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, ref)
+    assert ref.abs().sum() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,soft", [
+    ((8, 512), True), ((64, 2048), False), ((5, 37), True), ((3, 7, 11), False),
+])
+def test_lif_step_kernel_matches_plain(cuda, shape, soft):
+    g = np.random.default_rng(len(shape) + shape[-1])
+    v = torch.from_numpy(g.integers(-300, 300, shape).astype(np.int32))
+    i = torch.from_numpy(g.integers(-200, 200, shape).astype(np.int32))
+    kw = dict(leak_shift=3, threshold_q=64, v_reset_q=-5, soft_reset=soft)
+    pv, ps = lif_ref.lif_step_ref(v, i, **kw)
+    before = lif_ops.lif_step.launches
+    kv, ks = lif_ops.lif_step(v.to(cuda), i.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert lif_ops.lif_step.launches == before + 1
+    assert torch.equal(kv.cpu(), pv) and torch.equal(ks.cpu(), ps)
+    assert 0 < int(ps.sum()) < ps.numel()
+
+
+# --- the LM kernels: float, within the stated tolerance --------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,bits,gs,dtype", [
+    (8, 2048, 8192, 4, -1, torch.bfloat16),   # olmo-1b wi at decode
+    (37, 8192, 2048, 4, -1, torch.bfloat16),  # olmo-1b wo at a prefill
+    (5, 256, 96, 8, -1, torch.float32),
+    (3, 72, 45, 2, 24, torch.float32),        # grouped, k % 16 != 0
+    (20, 512, 64, 4, 256, torch.float16),     # groups wider than a word run
+])
+def test_packed_qmatmul_kernel_matches_plain(cuda, m, k, n, bits, gs, dtype):
+    """Tolerance: both sum the same float32 products (the dequantized
+    weight rounded to float32 first) in another order; in float32 that
+    moves a sum by ~sqrt(k) ulps, so 1e-4 of the output's scale; the
+    bfloat16/float16 outputs round once more, so one ulp of that type
+    (2^-7 / 2^-10 relative) on top."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = np.random.default_rng(m * k + n)
+    x = torch.from_numpy(g.standard_normal((m, k)).astype(np.float32))
+    x = x.to(cuda, dtype)
+    wf = torch.from_numpy((g.standard_normal((n, k)) * 0.05)
+                          .astype(np.float32))
+    qt = quantize(wf, PrecisionConfig(bits=bits, group_size=gs)).to(cuda)
+    ref = qmm_ref.qmatmul_ref(x, qt).float()
+    before = qmm_ops.qmatmul.launches
+    got = qmm_ops.qmatmul(x, qt)
+    torch.cuda.synchronize()
+    assert qmm_ops.qmatmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    rel = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7,
+           torch.float16: 2.0 ** -10}[dtype]
+    err = (got.float() - ref).abs()
+    assert float((err - rel * ref.abs()).max()) <= 1e-4 * float(
+        ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_packed_qmatmul_refuses_zero_point_on_cuda(cuda):
+    qt = quantize(torch.randn(32, 64), PrecisionConfig(bits=4,
+                                                       symmetric=False))
+    with pytest.raises(ValueError, match="zero-point"):
+        qmm_ops.qmatmul(torch.randn(2, 64, device=cuda), qt.to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,kh,g,hd,bits,lens,window,cap,dtype", [
+    (8, 1024, 16, 1, 128, 4, 544, 0, None, torch.bfloat16),  # olmo-1b
+    (2, 300, 2, 2, 64, 2, (300, 77), 0, None, torch.float32),
+    (2, 257, 2, 4, 64, 8, (257, 130), 50, 30.0, torch.float32),
+    (3, 64, 1, 8, 256, 4, (1, 64, 33), 16, 50.0, torch.bfloat16),
+])
+def test_kv_attention_kernel_matches_plain(cuda, b, s, kh, g, hd, bits,
+                                           lens, window, cap, dtype):
+    """Tolerance: the kernel's online softmax divides once at the end where
+    the plain version normalises and rounds each probability to bfloat16
+    before the weighted sum (~2^-9 relative per term); atol 1e-2 on
+    outputs of magnitude ~1 covers that and a bfloat16 output rounding."""
+    gen = torch.Generator().manual_seed(b * s + g)
+    q = torch.randn((b, 1, kh * g, hd), generator=gen).to(cuda, dtype)
+    k = torch.randn((b, s, kh, hd), generator=gen).to(cuda)
+    v = torch.randn((b, s, kh, hd), generator=gen).to(cuda)
+    kp, ks = kv_ref.quantize_kv(k, bits)
+    vp, vs = kv_ref.quantize_kv(v, bits)
+    cl = torch.tensor(lens, dtype=torch.int32, device=cuda) \
+        if isinstance(lens, tuple) else lens
+    kw = dict(bits=bits, scale=hd ** -0.5, cache_len=cl, window=window,
+              logit_cap=cap)
+    ref = kv_ref.quant_kv_decode_attention_ref(q, kp, ks, vp, vs, **kw)
+    before = kv_ops.quant_kv_decode_attention.launches
+    got = kv_ops.quant_kv_decode_attention(q, kp, ks, vp, vs, **kw)
+    torch.cuda.synchronize()
+    assert kv_ops.quant_kv_decode_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == ref.shape
+    torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                               rtol=2e-2)

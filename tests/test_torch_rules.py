@@ -6,7 +6,8 @@
 * an entry point called without ``device=`` on a host without CUDA
   raises instead of dropping to the CPU;
 * the kernel wrappers take the plain version only for CPU tensors and
-  refuse a device they have no kernel for.
+  refuse a device they have no kernel for (and ``qmatmul`` a zero-point
+  tensor off the CPU).
 """
 
 import os
@@ -90,6 +91,24 @@ def test_entry_points_without_device_raise_without_cuda(monkeypatch,
         snn_cnn.init(0, cfg)
 
 
+def test_lm_entry_points_without_device_raise_without_cuda(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import api, transformer
+    from repro_torch.serve.engine import EngineConfig, ServeEngine
+
+    cfg = get_config("olmo-1b", smoke=True)
+    params = transformer.init(0, cfg, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: transformer.init(0, cfg),
+                 lambda: api.get_model(cfg).init(0),
+                 lambda: transformer.init_cache(cfg, 2, 8),
+                 lambda: ServeEngine(cfg, params, EngineConfig()),
+                 lambda: serve.main(["--requests", "1"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
 def test_wrappers_refuse_devices_they_have_no_kernel_for():
     """Dispatch is by the tensor's device: CPU takes the plain version,
     CUDA the kernel, anything else raises (no silent plain fallback)."""
@@ -113,3 +132,44 @@ def test_wrappers_refuse_devices_they_have_no_kernel_for():
         group_ops.fused_group_rollout(
             torch.zeros((1, 1, 4, 4, 1), dtype=torch.int32, device="meta"),
             (("conv", qct, 3), ("conv", qct, 3)), leak_shift=3)
+
+
+def test_slice3_wrappers_refuse_devices_they_have_no_kernel_for():
+    from repro_torch.kernels.kv_attention import ops as kv_ops
+    from repro_torch.kernels.lif_step import ops as lif_ops
+    from repro_torch.kernels.packed_qmatmul import ops as qmm_ops
+    from repro_torch.kernels.spike_matmul import ops as sm_ops
+    from repro_torch.quant.formats import PrecisionConfig
+    from repro_torch.quant.ptq import quantize
+
+    meta = dict(device="meta")
+    qt = quantize(torch.randn(32, 64), PrecisionConfig(bits=4))
+    with pytest.raises(ValueError, match="unsupported device"):
+        sm_ops.spike_matmul(torch.zeros((3, 2), dtype=torch.int32, **meta),
+                            qt, d_in=64)
+    v = torch.zeros((3, 5), dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lif_ops.lif_step(v, v, leak_shift=3, threshold_q=4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        qmm_ops.qmatmul(torch.zeros((2, 64), **meta), qt)
+    kp = torch.zeros((1, 8, 2, 2), dtype=torch.int32, **meta)
+    ks = torch.zeros((1, 8, 2, 1), **meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kv_ops.quant_kv_decode_attention(
+            torch.zeros((1, 1, 2, 16), **meta), kp, ks, kp, ks, bits=4,
+            scale=0.25, cache_len=4)
+
+
+def test_packed_qmatmul_refuses_zero_point_off_the_cpu():
+    """JAX sends a zero-point tensor to its reference; the port has no
+    kernel for one and raises on any non-CPU tensor (the CUDA case is in
+    test_torch_kernels_cuda.py), while the CPU plain version takes it."""
+    from repro_torch.kernels.packed_qmatmul import ops as qmm_ops
+    from repro_torch.quant.formats import PrecisionConfig
+    from repro_torch.quant.ptq import quantize
+
+    qt = quantize(torch.randn(32, 64), PrecisionConfig(bits=4,
+                                                       symmetric=False))
+    assert qmm_ops.qmatmul(torch.randn(2, 64), qt).shape == (2, 32)
+    with pytest.raises(ValueError, match="zero-point"):
+        qmm_ops.qmatmul(torch.zeros((2, 64), device="meta"), qt)
