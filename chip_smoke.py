@@ -42,7 +42,8 @@
    - served by ``ServeEngine(slots=8, max_len=1024)`` with a bf16 KV
      cache: 16 requests, prompts of 16-256 tokens from
      ``numpy.random.default_rng(0)``, 32 new tokens each; 112
-     ``packed_qmatmul`` launches per prefill and per decode step;
+     ``packed_qmatmul`` launches per prefill and per decode step, each
+     prefill's counted apart by the variant its prompt length selects;
    - with an INT4 KV cache: a uniform batch of 8 prompts of 512 tokens,
      the prefill cache padded to 1024, 32 ``decode_step(ragged=False)``
      steps; 16 ``kv_attention`` launches per step;
@@ -56,8 +57,12 @@
    one (the floor summation order alone makes), the greedy-token
    agreement, the share of packed KV words that differ after prefill,
    and a profile of a decode step.  Each LM kernel is also held against
-   its plain version and timed at the shapes of a decode step
-   (``kv_attention`` also with a sliding window and a logit cap).
+   its plain version and timed at the shapes of the served path:
+   ``packed_qmatmul`` for one layer's 7 linears at M=8 (a decode step,
+   the CUDA-core variant), at each of the serve phase's prompt lengths
+   (summed by variant), at M=256 and at M=4096 (the INT4-KV prefill; the
+   chosen variant and tile are printed), ``kv_attention`` at a decode
+   step (also with a sliding window and a logit cap).
 
 Exits non-zero on any failure and without a card.  The line before the
 last is the kernels' JSON record; the last line is
@@ -98,28 +103,45 @@ def _median_ms(fn, iters=20, reps=5):
     return sorted(times)[len(times) // 2]
 
 
-def _device_ms(fn, match="", reps=10):
+def _device_ms(fn, match="", reps=10, per_call=None):
     """Device time per call of ``fn``: the summed time of the CUDA kernels
     (and copies) it runs, from torch.profiler, counting only events whose
-    name contains ``match``.  Falls back to the CUDA-event wall time when
-    the profiler reports no device time."""
+    name contains ``match``.  The profiler now and then drops events, so
+    a profile is taken again (3 tries) when it holds no device time or,
+    with ``per_call`` (the launches under ``match`` one call makes), not
+    ``reps * per_call`` of them.  Raises when the profiler saw device
+    time but none under ``match`` (a renamed kernel) or never the
+    expected count; falls back to the CUDA-event wall time only when the
+    profiler reports no device time at all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and match in e.key)
-    if us <= 0:
-        print(f"  (profiler gave no device time for {match or 'call'}; "
-              f"CUDA-event wall time instead)", flush=True)
-        return _median_ms(fn)
-    return us / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        hits = [e for e in events if match in e.key]
+        us = sum(e.self_device_time_total for e in hits)
+        seen = sum(e.count for e in hits)
+        if us > 0 and per_call in (None, seen / reps):
+            return us / reps / 1e3
+        if us <= 0 and any(e.self_device_time_total > 0 for e in events):
+            raise AssertionError(
+                f"profiler saw device time but no kernel matching "
+                f"{match!r}: " + ", ".join(e.key[:60] for e in events))
+    if us > 0:
+        raise AssertionError(f"profiler caught {seen} launches under "
+                             f"{match!r} in 3 tries, expected "
+                             f"{reps * per_call}")
+    print(f"  (profiler gave no device time for {match or 'call'}; "
+          f"CUDA-event wall time instead)", flush=True)
+    return _median_ms(fn)
 
 
 def _bound_ms(nbytes, ops, ops_per_s=H100_INT8_OPS_PER_S):
@@ -650,10 +672,24 @@ class LogitCheck:
                 f"{self.agree}/{self.n} ({100 * self.agree / self.n:.1f}%)")
 
 
+def serve_prompts(cfg):
+    """The 16 prompts of the bf16-KV serve phase: 16-256 tokens, seed 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    prompts = []
+    for _ in range(16):
+        plen = int(rng.integers(16, 257))
+        prompts.append(rng.integers(0, cfg.vocab, plen).astype(np.int32))
+    return prompts
+
+
 def lm_serve_phase(dev, cfg, params):
     """olmo-1b W4 served by the engine (bf16 KV): 16 requests, counts of
-    packed_qmatmul launches, throughput, latency, and every request's
-    logits against a teacher-forced plain-path re-run."""
+    packed_qmatmul launches (each prefill's counted apart, by the variant
+    its prompt length selects), throughput, latency, and every request's
+    logits against a teacher-forced plain-path re-run.  Returns the
+    launches, the prefills' share of them and the end-to-end metrics."""
     import numpy as np
     import torch
 
@@ -669,12 +705,32 @@ def lm_serve_phase(dev, cfg, params):
                             max_new_tokens=2))      # warm-up, not counted
     eng.run_until_done()
     eng.done.clear()
-    rng = np.random.default_rng(0)
-    reqs = []
-    for uid in range(16):
-        plen = int(rng.integers(16, 257))
-        reqs.append(Request(uid=uid, prompt=rng.integers(
-            0, cfg.vocab, plen).astype(np.int32), max_new_tokens=32))
+    reqs = [Request(uid=uid, prompt=p, max_new_tokens=32)
+            for uid, p in enumerate(serve_prompts(cfg))]
+
+    class CountedPrefill:
+        """The engine's model, with the packed_qmatmul launches of each
+        prefill counted by the variant its M (the prompt length; bf16 x,
+        per-row scales) selects."""
+
+        def __init__(self, mb):
+            self.mb = mb
+            self.launches = {"gemv": 0, "mma": 0}
+            self.prompts = {"gemv": 0, "mma": 0}
+
+        def __getattr__(self, name):
+            return getattr(self.mb, name)
+
+        def prefill(self, params_, batch):
+            n0 = qmm_ops.qmatmul.launches
+            out = self.mb.prefill(params_, batch)
+            variant = qmm_ops._variant(batch["tokens"].numel(),
+                                       torch.bfloat16, -1)
+            self.launches[variant] += qmm_ops.qmatmul.launches - n0
+            self.prompts[variant] += 1
+            return out
+
+    eng.mb = counted = CountedPrefill(eng.mb)
     per_fwd = 7 * cfg.n_layers
     qmm_ops.qmatmul.launches = 0
     kv_ops.quant_kv_decode_attention.launches = 0
@@ -694,6 +750,11 @@ def lm_serve_phase(dev, cfg, params):
         raise AssertionError(f"olmo serve: launches {launches} (expected "
                              f"{want}: {per_fwd} per prefill and per decode "
                              f"step), stats {stats}")
+    if any(counted.launches[v] != per_fwd * counted.prompts[v]
+           for v in counted.launches):
+        raise AssertionError(f"olmo serve prefills: launches "
+                             f"{counted.launches} for prompts "
+                             f"{counted.prompts}, expected {per_fwd} each")
     n_qmm = launches["packed_qmatmul"]
     lat = sorted(r.latency_s * 1e3 for r in reqs)
     p50 = float(np.percentile(lat, 50))
@@ -704,8 +765,11 @@ def lm_serve_phase(dev, cfg, params):
           f"{stats['generated_tokens']} tokens in {steps} decode steps: "
           f"{stats['generated_tokens'] / wall:.1f} tokens/s end to end "
           f"({wall * 1e3:.1f} ms wall), request latency p50 {p50:.1f} ms, "
-          f"p95 {p95:.1f} ms; packed_qmatmul launches {n_qmm} = {per_fwd} "
-          f"x 16 prefills + {(n_qmm - per_fwd * 16) / steps:.0f} per decode "
+          f"p95 {p95:.1f} ms; packed_qmatmul launches {n_qmm}: prefills "
+          f"gemv {counted.launches['gemv']} ({counted.prompts['gemv']} "
+          f"prompts) + mma {counted.launches['mma']} "
+          f"({counted.prompts['mma']} prompts), decode "
+          f"{(n_qmm - sum(counted.launches.values())) / steps:.0f} per "
           f"step x {steps}", flush=True)
 
     def teacher_forced(dtype=None):
@@ -745,8 +809,10 @@ def lm_serve_phase(dev, cfg, params):
     profile_calls(lambda: transformer.decode_step(params, cfg, eng.cache,
                                                   toks, ragged=True),
                   "decode step")
-    return launches, dict(tokens_per_s=stats["generated_tokens"] / wall,
-                          p50_ms=p50, p95_ms=p95)
+    prefill = {"packed_qmatmul": sum(counted.launches.values())}
+    return launches, prefill, dict(
+        tokens_per_s=stats["generated_tokens"] / wall, p50_ms=p50,
+        p95_ms=p95)
 
 
 def lm_int4_kv_phase(dev, cfg, params):
@@ -767,11 +833,17 @@ def lm_int4_kv_phase(dev, cfg, params):
     toks = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab, (b, s_len)), dtype=torch.int64, device=dev)
 
+    prefill_launches = []
+
     def run(feed=None):
         """Prefill, pad, n_steps uniform decode steps (greedy, or fed the
         tokens ``feed``).  Returns the logits at each step, the tokens
         fed, the decode seconds, the prefill cache and the final cache."""
+        # (the plain versions that plain_kernels swaps in count nothing)
+        count = lambda: getattr(qmm_ops.qmatmul, "launches", 0)
+        n0 = count()
         logits, pre = transformer.prefill(params, cfg4, toks)
+        prefill_launches.append(count() - n0)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         cache = _pad_cache(pre, max_len)
@@ -795,16 +867,19 @@ def lm_int4_kv_phase(dev, cfg, params):
     wall = time.perf_counter() - t0
     launches = {"packed_qmatmul": qmm_ops.qmatmul.launches,
                 "kv_attention": kv_ops.quant_kv_decode_attention.launches}
+    prefill = {"packed_qmatmul": prefill_launches[-1]}
     want = {"packed_qmatmul": per_fwd * (1 + n_steps),
             "kv_attention": cfg.n_layers * n_steps}
-    if launches != want:
-        raise AssertionError(f"olmo INT4 KV: launches {launches}, expected "
-                             f"{want}")
+    if launches != want or prefill["packed_qmatmul"] != per_fwd:
+        raise AssertionError(f"olmo INT4 KV: launches {launches} (prefill "
+                             f"{prefill}), expected {want} ({per_fwd} in "
+                             f"the prefill)")
     print(f"olmo-1b W4 + INT4 KV, uniform batch {b} x {s_len} prompt, "
           f"{n_steps} decode steps: prefill {(wall - decode_s) * 1e3:.1f} "
           f"ms, decode {decode_s / n_steps * 1e3:.2f} ms/step "
           f"({b * n_steps / decode_s:.1f} tokens/s); launches {launches} "
-          f"({launches['kv_attention'] // n_steps} kv_attention per step)",
+          f"(prefill {prefill['packed_qmatmul']} packed_qmatmul; "
+          f"{launches['kv_attention'] // n_steps} kv_attention per step)",
           flush=True)
     with plain_kernels():
         ref, _, _, ref_pre, _ = run(feed=fed)
@@ -830,18 +905,23 @@ def lm_int4_kv_phase(dev, cfg, params):
     print("olmo-1b decode step, uniform batch 8, INT4 KV:", flush=True)
     profile_calls(lambda: transformer.decode_step(params, cfg4, cache, tok),
                   "decode step")
-    return launches, dict(decode_tokens_per_s=b * n_steps / decode_s)
+    return launches, prefill, dict(
+        decode_tokens_per_s=b * n_steps / decode_s)
 
 
 def lm_kernel_phase(dev, cfg, params):
     """packed_qmatmul and kv_attention against their plain versions and
-    timed at a decode step's shapes: the 7 linears of one layer at M=8
-    (bf16 x) and one kv_attention call over an INT4 cache like the
-    uniform-batch phase's (8 x 544 live keys of 1024), with a sliding
-    window and a logit cap checked beside.  As on the served path, the
-    data is cold: each timed call takes the next layer's weights (33.6 MB
-    a layer, 537 MB in all) or the next of 8 caches (144 MB), more than
-    the 50 MB L2 holds."""
+    timed at the served path's shapes: the 7 linears of one layer at M=8
+    (a decode step), at each prompt length of the bf16-KV serve phase
+    (its prefills; summed by the variant each selects), at M=256 (a
+    fixed prefill geometry, kept to compare kernel versions) and at
+    M=4096 (the INT4-KV phase's 8 x 512 prefill), bf16 x; and one
+    kv_attention call over an INT4 cache like the uniform-batch phase's
+    (8 x 544 live keys of 1024), with a sliding window and a logit cap
+    checked beside.  As on
+    the served path, the data is cold: each timed call takes the next
+    layer's weights (33.6 MB a layer, 537 MB in all) or the next of 8
+    caches (144 MB), more than the 50 MB L2 holds."""
     import itertools
 
     import torch
@@ -855,12 +935,22 @@ def lm_kernel_phase(dev, cfg, params):
     gen = torch.Generator(device=dev).manual_seed(2)
     layers = [[lin["w"] for blk in ("attn", "mlp") for lin in lp[blk].values()]
               for lp in params["layers"]]
-    rows, errs = {}, {}
-    for m in (8, 256):
+    dense = [[qmm_ref.dequant_w(qt).T.to(torch.bfloat16).contiguous()
+              for qt in qts] for qts in layers]
+    order = itertools.cycle(range(len(layers)))
+
+    def layer_at(m, check_all=False):
+        """One layer's 7 linears at M=m: checked against the plain
+        version (every layer, or layer 0), then timed cold."""
         xs = [torch.randn((m, qt.shape[1]), generator=gen, device=dev,
                           dtype=torch.bfloat16) for qt in layers[0]]
+        variants = sorted({
+            qmm_ops._variant(m, x.dtype, qt.group_size) +
+            ("" if m < qmm_ops.MMA_MIN_M else " %dx%d" % qmm_ops._mma_tile(
+                m, qt.shape[0], qt.n_groups > 1))
+            for x, qt in zip(xs, layers[0])})
         err = 0.0
-        for qts in (layers if m == 8 else layers[:1]):
+        for qts in (layers if check_all else layers[:1]):
             for x, qt in zip(xs, qts):
                 got = qmm_ops.qmatmul(x, qt).float()
                 ref = qmm_ref.qmatmul_ref(x, qt).float()
@@ -870,35 +960,73 @@ def lm_kernel_phase(dev, cfg, params):
                     raise AssertionError(f"packed_qmatmul m={m} {qt.shape}: "
                                          f"off the plain version")
                 err = max(err, float((got - ref).abs().max()))
-        order = itertools.cycle(range(len(layers)))
         run = lambda: [qmm_ops.qmatmul(x, qt)
                        for x, qt in zip(xs, layers[next(order)])]
-        ms = _device_ms(run, "qmatmul_kernel")
-        plain_ms = _device_ms(
+        # both variants' kernels are named qmatmul_<variant>_kernel
+        r = dict(ms=_device_ms(run, "qmatmul_", per_call=len(xs)))
+        r["plain_ms"] = _device_ms(
             lambda: [qmm_ref.qmatmul_ref(x, qt)
                      for x, qt in zip(xs, layers[next(order)])], reps=3)
-        dense = [[qmm_ref.dequant_w(qt).T.to(torch.bfloat16).contiguous()
-                  for qt in qts] for qts in layers]
-        lib_ms = _device_ms(lambda: [torch.matmul(x, w) for x, w in
-                                     zip(xs, dense[next(order)])])
-        del dense
+        r["library_ms"] = _device_ms(lambda: [torch.matmul(x, w) for x, w in
+                                              zip(xs, dense[next(order)])])
         nbytes = sum(4 * (qt.data.numel() + qt.scale.numel())
                      + 2 * m * (qt.shape[0] + qt.shape[1])
                      for qt in layers[0])
         flops = sum(2 * m * qt.shape[0] * qt.shape[1] for qt in layers[0])
-        bound, t_b, t_o = _bound_ms(nbytes, flops, H100_BF16_OPS_PER_S)
+        r["bound_ms"], r["bytes_ms"], r["ops_ms"] = _bound_ms(
+            nbytes, flops, H100_BF16_OPS_PER_S)
+        r["variant"] = ", ".join(variants)
+        return r, err, run, nbytes
+
+    rows, errs = {"packed_qmatmul": {}}, {"packed_qmatmul": 0.0}
+    for m, geo in ((8, "decode layer"), (256, "prefill layer m256"),
+                   (4096, "prefill layer m4096")):
+        r, err, run, nbytes = layer_at(m, check_all=m == 8)
         checked = f"all {len(layers)} layers" if m == 8 else "layer 0"
-        print(f"  packed_qmatmul layer (7 linears) m={m} w4 bf16, cold: "
-              f"kernel {ms:.4f} ms (wrapper calls {_median_ms(run):.4f} ms "
-              f"wall) | plain {plain_ms:.4f} ms | bf16 matmul on dequantized "
-              f"weights {lib_ms:.4f} ms | bound {bound:.5f} ms (bytes "
-              f"{t_b:.5f}, flops {t_o:.5f}; {nbytes} B) | max |err| "
-              f"{err:.3e} ({checked})", flush=True)
-        if m == 8:
-            rows["packed_qmatmul"] = {"decode layer": dict(
-                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-                bytes_ms=t_b, ops_ms=t_o)}
-            errs["packed_qmatmul"] = err
+        print(f"  packed_qmatmul layer (7 linears) m={m} w4 bf16, cold, "
+              f"variant {r['variant']}: kernel {r['ms']:.4f} ms (wrapper "
+              f"calls {_median_ms(run):.4f} ms wall) | plain "
+              f"{r['plain_ms']:.4f} ms | bf16 matmul on dequantized weights "
+              f"{r['library_ms']:.4f} ms | bound {r['bound_ms']:.5f} ms "
+              f"(bytes {r['bytes_ms']:.5f}, flops {r['ops_ms']:.5f}; "
+              f"{nbytes} B) | max |err| {err:.3e} ({checked})", flush=True)
+        rows["packed_qmatmul"][geo] = r
+        errs["packed_qmatmul"] = max(errs["packed_qmatmul"], err)
+    # the serve phase's prefills: one layer at each of its prompt lengths,
+    # summed by variant
+    by_variant = {}
+    for m in sorted(len(p) for p in serve_prompts(cfg)):
+        r, err, _, _ = layer_at(m)
+        print(f"  packed_qmatmul layer m={m} (a serve prefill), variant "
+              f"{r['variant']}: kernel {r['ms']:.4f} ms | plain "
+              f"{r['plain_ms']:.4f} ms | library {r['library_ms']:.4f} ms | "
+              f"bound {r['bound_ms']:.5f} ms", flush=True)
+        errs["packed_qmatmul"] = max(errs["packed_qmatmul"], err)
+        kind = qmm_ops._variant(m, torch.bfloat16, -1)
+        acc = by_variant.setdefault(kind, dict(
+            ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+            ops_ms=0.0, lens=[], variants=set()))
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
+                  "ops_ms"):
+            acc[k] += r[k]
+        acc["lens"].append(m)
+        acc["variants"].update(r["variant"].split(", "))
+    for kind in ("gemv", "mma"):
+        acc = by_variant.get(kind)
+        if acc is None:
+            raise AssertionError(f"no serve prompt selects {kind}: the "
+                                 f"serve prefills no longer cover both "
+                                 f"variants")
+        lens, variants = acc.pop("lens"), acc.pop("variants")
+        acc["variant"] = (f"{', '.join(sorted(variants))}; {len(lens)} "
+                          f"prompts of {lens[0]}-{lens[-1]} tokens")
+        rows["packed_qmatmul"][f"serve prefills {kind}"] = acc
+        print(f"  packed_qmatmul serve prefills, {kind}: {acc['variant']}: "
+              f"kernel {acc['ms']:.4f} ms per layer, summed over the "
+              f"prompts | plain {acc['plain_ms']:.4f} | library "
+              f"{acc['library_ms']:.4f} | bound {acc['bound_ms']:.5f}",
+              flush=True)
+    del dense
 
     b, s_len, kh, hd, bits, live = 8, 1024, cfg.n_kv, cfg.head_dim, 4, 544
     h = cfg.n_heads
@@ -924,7 +1052,7 @@ def lm_kernel_phase(dev, cfg, params):
     order = itertools.cycle(range(len(caches)))
     run = lambda: kv_ops.quant_kv_decode_attention(
         q, *caches[next(order)], **kw)
-    ms = _device_ms(run, "kv_attention_kernel")
+    ms = _device_ms(run, "kv_attention_kernel", per_call=1)
     plain_ms = _device_ms(lambda: kv_ref.quant_kv_decode_attention_ref(
         q, *caches[next(order)], **kw), reps=3)
     dense = [[kv_ref.dequantize_kv(p[:, :live], sc[:, :live], bits, hd)
@@ -1241,6 +1369,12 @@ def main() -> int:
         "olmo serve": {"packed_qmatmul": ["decode layer"] * 16},
         "olmo int4-kv": {"packed_qmatmul": ["decode layer"] * 16,
                          "kv_attention": ["decode"] * 16},
+        # the serve phase's 16 prefills (36-251 tokens at seed 0; those
+        # under 64 tokens take the gemv variant), the uniform 8 x 512 one
+        "olmo serve prefill": {"packed_qmatmul": [
+            "serve prefills gemv", "serve prefills mma"] * 16},
+        "olmo int4-kv prefill": {
+            "packed_qmatmul": ["prefill layer m4096"] * 16},
     }
 
     def main_names(kernel):
@@ -1279,20 +1413,28 @@ def main() -> int:
     lm_rows, lm_errs = lm_kernel_phase(dev, cfg, params)
     rows.update(lm_rows)
     errs.update(lm_errs)
-    runs["olmo serve"], _ = lm_serve_phase(dev, cfg, params)
-    runs["olmo int4-kv"], _ = lm_int4_kv_phase(dev, cfg, params)
+    for path, phase in (("olmo serve", lm_serve_phase),
+                        ("olmo int4-kv", lm_int4_kv_phase)):
+        launches, pre, _ = phase(dev, cfg, params)
+        # the prefills' launches, counted in the phase, apart
+        runs[f"{path} prefill"] = pre
+        runs[path] = {k: v - pre.get(k, 0) for k, v in launches.items()}
     print("kernel record: ms, plain_ms, library_ms and bound_ms are device "
           "time per call (torch.profiler), summed over the distinct "
           "geometries the main paths launch the kernel at (one call each; "
-          "packed_qmatmul: the 7 linears of one olmo-1b layer at M=8); "
-          "launches are summed over the paths that launch the kernel (the "
-          "three served SNN paths, 16 requests in 2 batches each; the NCE "
-          "step path's unfused rollouts; the two olmo-1b runs); paths gives "
-          "each path's launches and its kernel ms per B=8 forward (NCE: per "
-          "step of each geometry; olmo: per decode step)", flush=True)
+          "packed_qmatmul: the 7 linears of one olmo-1b layer at M=8, at "
+          "each serve prompt length and at M=4096; geometries also holds "
+          "M=256, which no path launches); launches are summed over the "
+          "paths that launch the kernel (the three served SNN paths, 16 "
+          "requests in 2 batches each; the NCE step path's unfused "
+          "rollouts; the two olmo-1b runs, their prefills counted apart); "
+          "paths gives each path's launches and its kernel ms per B=8 "
+          "forward (NCE: per step of each geometry; olmo: per decode step, "
+          "per INT4-KV prefill, and over the serve phase's 16 prefills)",
+          flush=True)
 
     def record(name, source, replaces):
-        kr = rows[name]
+        kr = {g: r for g, r in rows[name].items() if g in main_names(name)}
         t_b = sum(r["bytes_ms"] for r in kr.values())
         t_o = sum(r["ops_ms"] for r in kr.values())
         lib = [r["library_ms"] for r in kr.values()]
@@ -1307,7 +1449,10 @@ def main() -> int:
                 "library_ms": None if None in lib else sum(lib),
                 "paths": {p: {"launches": runs[p].get(name, 0),
                               "ms": sum(kr[g]["ms"] for g in geo[name])}
-                          for p, geo in paths.items() if name in geo}}
+                          for p, geo in paths.items() if name in geo},
+                "geometries": {g: {k: r[k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "variant")
+                    if k in r} for g, r in rows[name].items()}}
 
     print(json.dumps({"kernels": [
         record("fused_conv", "src/repro_torch/kernels/csrc/fused_conv.cu",

@@ -12,6 +12,10 @@ and at most 8 query heads per KV head.  One difference in a case no
 decode step reaches: with ``cache_len`` 0 the kernel returns zeros where
 the plain version averages every (masked) position.
 
+Each (batch row, KV head) is one thread-block cluster of
+:func:`_split` blocks, block r taking the r-th contiguous share of the
+live keys.
+
 ``quant_kv_decode_attention.launches`` counts kernel launches (and
 nothing else).
 """
@@ -26,10 +30,21 @@ import torch
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.kv_attention import ref as _ref
+from repro_torch.kernels.smem import N_SMS
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_HEAD_DIM = 256
 MAX_GROUP = 8
+
+
+def _split(pairs: int) -> int:
+    """Blocks per (batch row, KV head) for ``pairs`` of them: the most of
+    8, 4 and 2 that keeps the grid within 2 blocks (of 8 warps) per SM, so
+    every cluster is resident in one wave; 2 beyond that."""
+    for split in (8, 4):
+        if pairs * split <= 2 * N_SMS:
+            return split
+    return 2
 
 
 @functools.cache
@@ -37,7 +52,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("kv_attention")
     lib.kv_attention_launch.argtypes = (
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float] * 2 +
-        [ctypes.c_int, ctypes.c_void_p])
+        [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     lib.kv_attention_launch.restype = ctypes.c_int
     lib.kv_attention_error_string.argtypes = [ctypes.c_int]
     lib.kv_attention_error_string.restype = ctypes.c_char_p
@@ -98,6 +113,8 @@ def quant_kv_decode_attention(
     out = torch.empty_like(qc)
     if b == 0 or kh == 0:
         return out
+    vec16 = int(wpp % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (kp, vp)))
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -105,7 +122,8 @@ def quant_kv_decode_attention(
             qc.data_ptr(), kp.data_ptr(), ks.data_ptr(), vp.data_ptr(),
             vs.data_ptr(), lens.data_ptr(), out.data_ptr(), b, s_len, kh, g,
             hd, bits, int(window), int(logit_cap is not None), float(scale),
-            float(logit_cap or 0.0), _DTYPES[q.dtype], stream)
+            float(logit_cap or 0.0), _DTYPES[q.dtype], vec16, _split(b * kh),
+            stream)
     if err != 0:
         raise RuntimeError(
             f"kv_attention kernel launch failed: CUDA error {err} "

@@ -1,9 +1,11 @@
 """Shared-memory budget of the port's fused kernels on Hopper.
 
-Counterpart of ``repro.kernels.vmem``.  One number and one formula:
+Counterpart of ``repro.kernels.vmem``.  Two numbers and one formula:
 
   * :data:`SMEM_LIMIT`, the largest dynamic shared memory one block may
     opt into on an H100 (227 KB);
+  * :data:`N_SMS`, the H100 SXM's 132 SMs, against which the LM kernels'
+    wrappers size their grids;
   * :func:`group_rollout_smem_bytes`, what the ``fused_group`` kernel
     (``csrc/fused_group.cu``) holds in shared memory for a chain.  The
     fusion planner (``repro_torch.graph.fusion``) budgets with it and the
@@ -25,6 +27,9 @@ from typing import Dict, Sequence
 
 # largest dynamic shared memory a Hopper block may opt into (227 KB)
 SMEM_LIMIT = 232448
+# streaming multiprocessors of an H100 SXM, which the LM kernels' wrappers
+# size their grids against
+N_SMS = 132
 
 
 def stored_plane_words(m: Dict) -> int:

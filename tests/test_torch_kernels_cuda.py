@@ -294,3 +294,153 @@ def test_kv_attention_kernel_matches_plain(cuda, b, s, kh, g, hd, bits,
     assert got.dtype == dtype and got.shape == ref.shape
     torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
                                rtol=2e-2)
+
+
+def _check_qmatmul(got, ref, dtype):
+    rel = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7,
+           torch.float16: 2.0 ** -10}[dtype]
+    err = (got.float() - ref).abs()
+    assert float((err - rel * ref.abs()).max()) <= 1e-4 * float(
+        ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,bits,gs,dtype,variant", [
+    (64, 2048, 2048, 4, -1, torch.bfloat16, "mma"),     # variant boundary
+    (63, 2048, 2048, 4, -1, torch.bfloat16, "gemv"),
+    (65, 2048, 8192, 4, -1, torch.bfloat16, "mma"),     # olmo-1b wi
+    (256, 8192, 2048, 4, -1, torch.bfloat16, "mma"),    # olmo-1b wo
+    (256, 2048, 2048, 8, -1, torch.float16, "mma"),
+    (256, 2048, 8192, 2, 128, torch.bfloat16, "mma"),
+    (4096, 2048, 2048, 4, -1, torch.bfloat16, "mma"),   # INT4-KV prefill
+    (4096, 2048, 8192, 4, 128, torch.float16, "mma"),
+    (4096, 8192, 2048, 8, -1, torch.bfloat16, "mma"),
+    (4096, 2048, 2048, 8, -1, torch.float16, "mma"),
+    (100, 200, 45, 4, -1, torch.bfloat16, "mma"),       # ragged M, N, K
+    (100, 200, 45, 8, -1, torch.float16, "mma"),
+    (100, 256, 45, 2, 128, torch.bfloat16, "mma"),
+    (77, 264, 40, 8, -1, torch.float16, "mma"),         # 4-byte word copies
+    (64, 512, 96, 4, 128, torch.float32, "gemv"),
+    (40, 8192, 2048, 4, -1, torch.bfloat16, "gemv"),    # 16-byte word loads
+    (8, 2048, 2048, 8, 32, torch.bfloat16, "gemv"),     # groups < K tile
+])
+def test_packed_qmatmul_variants_match_plain(cuda, m, k, n, bits, gs, dtype,
+                                             variant):
+    """Both variants, at the variant boundary and the olmo-1b prefill
+    widths; the tolerance of test_packed_qmatmul_kernel_matches_plain
+    (the tensor-core variant sums the same exact products x * code in
+    another order and applies the scale in float32 afterwards)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    assert qmm_ops._variant(m, dtype, gs) == variant
+    g = np.random.default_rng(m * k + n + bits)
+    x = torch.from_numpy(g.standard_normal((m, k)).astype(np.float32))
+    x = x.to(cuda, dtype)
+    wf = torch.from_numpy((g.standard_normal((n, k)) * 0.05)
+                          .astype(np.float32))
+    qt = quantize(wf, PrecisionConfig(bits=bits, group_size=gs)).to(cuda)
+    ref = qmm_ref.qmatmul_ref(x, qt).float()
+    before = qmm_ops.qmatmul.launches
+    got = qmm_ops.qmatmul(x, qt)
+    torch.cuda.synchronize()
+    assert qmm_ops.qmatmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    _check_qmatmul(got, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,kh,g,hd,bits,lens,window,cap,dtype", [
+    (4, 1024, 2, 1, 128, 4, (1, 7, 544, 1024), 0, None, torch.bfloat16),
+    (2, 1024, 2, 2, 128, 4, (544, 100), 5, None, torch.bfloat16),  # empty
+    (2, 1024, 2, 4, 64, 8, (1024, 1024), 0, 30.0, torch.float16),  # S full
+    (2, 300, 1, 8, 256, 2, (300, 2), 0, None, torch.float32),
+    (2, 600, 4, 4, 256, 4, (600, 333), 128, None, torch.bfloat16),
+    (1, 4096, 1, 2, 128, 4, (4096,), 0, None, torch.bfloat16),  # 4 tiles
+    (2, 100, 2, 1, 72, 4, (90, 3), 0, 20.0, torch.float32),     # 9 words
+    # G not a power of two: the G=4 and G=8 variants with idle head slots
+    (2, 1024, 2, 3, 128, 4, (1024, 700), 0, None, torch.bfloat16),
+    (2, 300, 8, 6, 128, 4, (300, 150), 0, None, torch.bfloat16),
+    (1, 500, 1, 5, 64, 8, (500,), 0, None, torch.float16),
+    (2, 200, 1, 7, 256, 2, (200, 31), 64, 30.0, torch.float32),
+])
+def test_kv_attention_split_kernel_matches_plain(cuda, b, s, kh, g, hd,
+                                                 bits, lens, window, cap,
+                                                 dtype):
+    """The key-split kernel over ragged lens, empty splits (a window of 5
+    keys over 8 blocks, lens 1 and 2), G 1-8, hd 64/72/128/256 and
+    several tiles per block; the tolerance of
+    test_kv_attention_kernel_matches_plain."""
+    gen = torch.Generator().manual_seed(b * s + g * hd)
+    q = torch.randn((b, 1, kh * g, hd), generator=gen).to(cuda, dtype)
+    k = torch.randn((b, s, kh, hd), generator=gen).to(cuda)
+    v = torch.randn((b, s, kh, hd), generator=gen).to(cuda)
+    kp, ks = kv_ref.quantize_kv(k, bits)
+    vp, vs = kv_ref.quantize_kv(v, bits)
+    cl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    kw = dict(bits=bits, scale=hd ** -0.5, cache_len=cl, window=window,
+              logit_cap=cap)
+    ref = kv_ref.quant_kv_decode_attention_ref(q, kp, ks, vp, vs, **kw)
+    before = kv_ops.quant_kv_decode_attention.launches
+    got = kv_ops.quant_kv_decode_attention(q, kp, ks, vp, vs, **kw)
+    torch.cuda.synchronize()
+    assert kv_ops.quant_kv_decode_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == ref.shape
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.cuda
+def test_kv_attention_empty_cache_returns_zeros(cuda):
+    """cache_len 0: every split is empty, and the kernel writes zeros (the
+    documented difference from the plain version, which averages the
+    masked positions)."""
+    gen = torch.Generator().manual_seed(5)
+    q = torch.randn((2, 1, 4, 128), generator=gen).to(cuda, torch.bfloat16)
+    kp, ks = kv_ref.quantize_kv(torch.randn((2, 64, 2, 128),
+                                            generator=gen).to(cuda), 4)
+    before = kv_ops.quant_kv_decode_attention.launches
+    got = kv_ops.quant_kv_decode_attention(q, kp, ks, kp, ks, bits=4,
+                                           scale=0.1, cache_len=0)
+    torch.cuda.synchronize()
+    assert kv_ops.quant_kv_decode_attention.launches == before + 1
+    assert torch.equal(got.float(), torch.zeros_like(got.float()))
+
+
+# (m, k, n, group_size) that make _mma_tile pick each tile the kernel has
+_MMA_INSTANCES = {
+    ((128, 256), False): (1152, 256, 4096, -1),   # 9 x 16 tiles
+    ((128, 64), False): (256, 512, 8192, -1),     # olmo-1b wi at M=256
+    ((64, 64), False): (100, 200, 300, -1),       # ragged, 4-byte words
+    ((128, 64), True): (256, 512, 8192, 128),
+    ((64, 64), True): (96, 384, 200, 128),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("tile,grouped", list(_MMA_INSTANCES),
+                         ids=lambda v: "x".join(map(str, v))
+                         if isinstance(v, tuple) else f"grouped={v}")
+def test_packed_qmatmul_every_mma_instance(cuda, tile, grouped, dtype, bits):
+    """Each tile x scale layout x dtype x bit width the mma variant is
+    built for, reached through the wrapper's own choice; the tolerance of
+    test_packed_qmatmul_kernel_matches_plain."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m, k, n, gs = _MMA_INSTANCES[tile, grouped]
+    assert qmm_ops._variant(m, dtype, gs) == "mma"
+    assert qmm_ops._mma_tile(m, n, grouped) == tile
+    g = np.random.default_rng(m + k + n + bits)
+    x = torch.from_numpy(g.standard_normal((m, k)).astype(np.float32))
+    x = x.to(cuda, dtype)
+    wf = torch.from_numpy((g.standard_normal((n, k)) * 0.05)
+                          .astype(np.float32))
+    qt = quantize(wf, PrecisionConfig(bits=bits, group_size=gs)).to(cuda)
+    assert (qt.n_groups > 1) == grouped
+    ref = qmm_ref.qmatmul_ref(x, qt).float()
+    before = qmm_ops.qmatmul.launches
+    got = qmm_ops.qmatmul(x, qt)
+    torch.cuda.synchronize()
+    assert qmm_ops.qmatmul.launches == before + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    _check_qmatmul(got, ref, dtype)
