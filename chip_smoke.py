@@ -17,7 +17,9 @@
    from CUDA events is printed beside), and works out the bound (bytes
    over 3.35 TB/s vs the adds this data needs over 1979 T/s).  The
    ``fused_group`` phase also times the per-layer ``fused_conv`` + pool
-   chain that fusion replaces, on the same input.
+   chain that fusion replaces, on the same input (``chain_ms`` in the
+   record), and prints each chain's launch plan (cluster size, T chunk,
+   staged codes, K split); the ``fused_nce`` phase prints its grid.
 3. End to end, three paths, each ``graph_init`` (seed 0) -> ``deploy`` ->
    ``save`` -> ``load`` at full width, INT4, then
    ``SNNServeEngine(max_batch=8)`` serves 16 requests with every launch
@@ -294,6 +296,11 @@ def nce_phase(dev, gen, geometries, main_names):
                 bound, t_b, t_o = _bound_ms(nbytes, adds)
                 rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                   bound_ms=bound, bytes_ms=t_b, ops_ms=t_o)
+                rb, split = ops._nce_plan(t_steps, m, spikes.shape[-1], bits,
+                                          -(-d_out // 32) * 32)
+                print(f"  fused_nce {name:<6} launch: {-(-d_out // 32)} "
+                      f"groups x {-(-m // rb)} row chunks of {rb} x a "
+                      f"{split}-block cluster", flush=True)
                 print(f"  fused_nce {name:<6} m={m} {d_in}->{d_out} w4: "
                       f"kernel {ms:.4f} ms (wrapper call {call_ms:.4f} ms "
                       f"wall) | plain {plain_ms:.4f} ms | fp16 "
@@ -420,6 +427,14 @@ def group_phase(dev, gen, chains, main_names):
                 rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                   bound_ms=bound, bytes_ms=t_b, ops_ms=t_o,
                                   chain_ms=chain_ms)
+                geoms = ops._chain_geoms(members, hw, hw)
+                cl, tc, stage, ksplit, smem = ops._launch_plan(
+                    geoms, t_steps, b)
+                print(f"  fused_group {name:<9} launch: clusters of {cl} "
+                      f"blocks, T chunk {tc}, codes staged for "
+                      f"{sum(stage)} of {len(convs)} convs, K split "
+                      f"{'on' if ksplit else 'off'}, {smem} B of shared "
+                      f"memory a block", flush=True)
                 print(f"  fused_group {name:<9} {hw}x{hw}x{c_in} {spec} "
                       f"w4: kernel {ms:.4f} ms (wrapper call {call_ms:.4f} "
                       f"ms wall) | plain {plain_ms:.4f} ms | per-layer "
@@ -1317,9 +1332,13 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, "
           f"{len(logs)} sources in parallel)", flush=True)
     for name, log in logs.items():
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}", flush=True)
+            if "Compiling entry function" in line:
+                # the mangled kernel name, up to its template arguments
+                entry = line.split("'")[1][:90]
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {name} {entry}: {line.strip()}", flush=True)
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
@@ -1451,7 +1470,8 @@ def main() -> int:
                               "ms": sum(kr[g]["ms"] for g in geo[name])}
                           for p, geo in paths.items() if name in geo},
                 "geometries": {g: {k: r[k] for k in (
-                    "ms", "plain_ms", "library_ms", "bound_ms", "variant")
+                    "ms", "plain_ms", "library_ms", "bound_ms", "variant",
+                    "chain_ms")
                     if k in r} for g, r in rows[name].items()}}
 
     print(json.dumps({"kernels": [

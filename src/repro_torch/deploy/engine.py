@@ -17,8 +17,15 @@ on the device without waiting, record a CUDA event) followed by
 account).  Every request records its latency split: ``queue_s`` (enqueue
 -> bucket admit) and ``compute_s`` (the batched forward's share).
 
-Not ported yet: the metrics registry and spans, the watchdog, and
-``data_parallel`` (which raises).
+The lifecycle is the JAX engine's: ``pop_result`` drains ``done``
+(counts, throughput and avg/max latency survive it, from running
+totals), ``close`` flushes or abandons the queue, the engine is a
+context manager that drains on a clean exit only, and ``health()`` is
+the liveness payload.
+
+Not ported yet: the metrics registry and spans, the watchdog (so
+``health()`` has no ``watchdog`` key), and ``data_parallel`` (which
+raises).
 """
 
 from __future__ import annotations
@@ -257,9 +264,19 @@ class SNNServeEngine:
                 f"with step()")
         return self.stats()
 
+    def pop_result(self, uid: int) -> SNNRequest:
+        """Remove and return a completed request.  A long-lived server
+        drains ``done`` through here: the engine never evicts on its own.
+        Counts, throughput and avg/max latency in :meth:`stats` come from
+        running totals and survive draining; only the percentiles are
+        limited to the results still held."""
+        return self.done.pop(uid)
+
     def close(self, drain: bool = True) -> dict:
         """Flush the queue (``drain=True``) or abandon it, then refuse new
-        requests.  Idempotent; returns the final :meth:`stats`."""
+        requests.  Idempotent; returns the final :meth:`stats`.  As a
+        context manager the engine drains on a clean exit and abandons
+        the queue when the block raises."""
         if not self._closed:
             if drain:
                 while self.queue:
@@ -268,6 +285,33 @@ class SNNServeEngine:
                 self.queue.clear()
             self._closed = True
         return self.stats()
+
+    def __enter__(self) -> "SNNServeEngine":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.close(drain=exc_type is None)
+
+    def health(self) -> dict:
+        """Liveness payload (the JAX engine's keys, less ``watchdog``,
+        which is not ported): queue depth, closed flag, results not yet
+        drained, running totals, the warmed buckets and the model."""
+        return {
+            "queue_depth": len(self.queue),
+            "closed": self._closed,
+            "undrained_results": len(self.done),
+            "requests_total": self.total_requests,
+            "batches_total": self.total_batches,
+            "compile_cache": {
+                "buckets": [int(b) for b in self.buckets],
+                "compiled": sorted(int(b) for b in self._warm),
+                "compiles": self.compile_count,
+            },
+            "model": {
+                "name": self.cfg.model, "bits": self.cfg.precision.bits,
+                "timesteps": self.cfg.timesteps,
+            },
+        }
 
     def graph_summary(self) -> str:
         """The served model's graph, one line per node, with fusion-group

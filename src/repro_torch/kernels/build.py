@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, which is loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds).  Libraries go to
 ``build/repro_torch_kernels/`` at the repository root (git-ignored) under
-a name keyed by a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one is reused.  A kernel builds at its first
+a name keyed by a hash of the source, the shared ``csrc/*.cuh`` headers
+and the flags, so an edited source rebuilds and an unchanged one is
+reused.  A kernel builds at its first
 launch; :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import time: this module imports on hosts without
@@ -45,6 +46,8 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers too: an edited header rebuilds its includers
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{key[:16]}.so"
 

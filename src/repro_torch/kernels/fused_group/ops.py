@@ -18,11 +18,14 @@ i+1's c_in, pools keeping channels), and every pool dividing its plane.
 The graph-level planner (``repro_torch.graph.fusion``) front-runs these
 rules with layer names, so executor-driven calls never trip them.
 
-Around the kernel, the wrapper pads each member's weights and thresholds
-to a multiple of 32 output channels (zero rows, masked by ``n_out``
-inside the kernel), lays the packed words out [group][word][lane], and
-allocates the members' membrane scratch; the last conv member's scratch
-is the returned membrane.
+Around the kernel, the wrapper plans the launch (:func:`_launch_plan`):
+the cluster size (:func:`_cluster_size`), the T chunk, which members
+stage their codes in shared memory and whether warps may split a unit's
+k-steps (:func:`_plan`), all within ``SMEM_LIMIT``.  It passes each conv
+member's packed words and thresholds as they are (no re-layout: channels
+past ``c_out`` are masked by ``n_out`` inside the kernel) and allocates
+the membrane scratch the chunks need; the last conv member's membrane is
+returned.
 
 ``fused_group_rollout.launches`` counts kernel launches (and nothing else).
 """
@@ -34,7 +37,6 @@ import functools
 from typing import Dict, List, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core import packing
 from repro_torch.core.lif import as_theta_vector
@@ -44,6 +46,8 @@ from repro_torch.kernels.fused_group import ref as _ref
 
 _GEOM_INTS = 8      # ints per member row passed to the kernel
 _MAX_MEMBERS = 16   # the kernel's member table
+_CLUSTERS = tuple(range(16, 7, -1))  # blocks per batch element
+_RED_WORDS = 4 * 4 * 16 * 32   # the kernel's K-split tiles (kRedWords)
 
 
 def _round32(x: int) -> int:
@@ -53,17 +57,137 @@ def _round32(x: int) -> int:
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_group")
-    lib.fused_group_launch.argtypes = ([ctypes.c_void_p] * 5 +
-                                       [ctypes.POINTER(ctypes.c_int)] +
-                                       [ctypes.c_int] * 6 +
-                                       [ctypes.c_void_p])
+    lib.fused_group_launch.argtypes = (
+        [ctypes.c_void_p] + [ctypes.POINTER(ctypes.c_void_p)] * 3 +
+        [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)] +
+        [ctypes.c_int] * 11 + [ctypes.c_void_p])
     lib.fused_group_launch.restype = ctypes.c_int
-    lib.fused_group_smem_bytes.argtypes = [ctypes.POINTER(ctypes.c_int),
-                                           ctypes.c_int]
+    lib.fused_group_smem_bytes.argtypes = [ctypes.POINTER(ctypes.c_int)] + \
+        [ctypes.c_int] * 5
     lib.fused_group_smem_bytes.restype = ctypes.c_size_t
+    lib.fused_group_max_clusters.argtypes = [ctypes.c_int, ctypes.c_int,
+                                             ctypes.c_size_t]
+    lib.fused_group_max_clusters.restype = ctypes.c_int
     lib.fused_group_error_string.argtypes = [ctypes.c_int]
     lib.fused_group_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# --- the launch plan (csrc/fused_group.cu must agree) ----------------------
+
+
+def _conv_wpr(g: Tuple) -> int:
+    """Packed words per output channel of a conv geometry row."""
+    _, bits, k, cin_pad, _, _, _, _ = g
+    return k * k * cin_pad * bits // 32
+
+
+def _staged_stride(wpr: int) -> int:
+    """Staged words per channel: ``wpr`` padded to 4 mod 32, so the 8
+    channels of a B fragment load sit in distinct banks."""
+    return wpr + ((4 - wpr) & 31)
+
+
+def _stage_words(g: Tuple, cl: int) -> int:
+    """Staged code words of a conv member per block: the most 32-channel
+    groups one block of a ``cl``-block cluster owns."""
+    return -(-(g[6] // 32) // cl) * 32 * _staged_stride(_conv_wpr(g))
+
+
+def _group_smem_bytes(geoms: Sequence[Tuple], tc: int, cl: int,
+                      stage: Sequence[bool], ksplit: bool) -> int:
+    """Dynamic shared memory of one block (``smem_bytes`` in the kernel):
+    two plane buffers of ``tc`` steps, each step the chain's largest
+    stored plane, then (16-byte aligned) the largest staged code slab,
+    then with ``ksplit`` the K-split tiles.  At tc = 1 with nothing
+    staged and no K split it is the planner's formula."""
+    bw = max(_smem.stored_plane_words(d) for d in geom_smem_dicts(geoms))
+    w = max((_stage_words(g, cl) for g, st in zip(geoms, stage)
+             if g[0] == "conv" and st), default=0)
+    if not w and not ksplit:
+        return 4 * 2 * tc * bw
+    return 4 * (-(-2 * tc * bw // 4) * 4 + w + (_RED_WORDS if ksplit
+                                                else 0))
+
+
+def _plan(geoms: Sequence[Tuple], t_steps: int,
+          cl: int) -> Tuple[int, Tuple[bool, ...], bool]:
+    """(tc, stage, ksplit): the T chunk, which conv members stage their
+    codes, and whether warps may split a unit's k-steps (the K-split
+    tiles).  In that priority: every conv member stages, then the K
+    split, then the largest chunk that fits beside them; only when not
+    even one step fits beside every slab does a member keep its codes in
+    L2 (then every member whose slab fits beside one step still stages,
+    without a K split).  A chain the planner admits always fits at
+    tc = 1 with nothing staged and no K split."""
+    every = tuple(g[0] == "conv" for g in geoms)
+    for ksplit in (True, False):
+        for tc in range(max(t_steps, 1), 0, -1):
+            if _group_smem_bytes(geoms, tc, cl, every,
+                                 ksplit) <= _smem.SMEM_LIMIT:
+                return tc, every, ksplit
+    alone = tuple(
+        g[0] == "conv" and _group_smem_bytes(
+            geoms, 1, cl, [j == i for j in range(len(geoms))], False)
+        <= _smem.SMEM_LIMIT for i, g in enumerate(geoms))
+    return 1, alone, False
+
+
+def _cluster_size(b: int, active: Dict[int, int]) -> int:
+    """The cluster size that runs ``b`` batch elements in the fewest
+    waves, the largest of those: ``active[cl]`` is how many clusters of
+    ``cl`` blocks the card runs at once (cudaOccupancyMaxActiveClusters).
+    A wave costs more than its share of the work (barriers, staging and
+    pools do not shrink with the cluster): on an H100 SXM, which runs 7
+    clusters of 16 blocks at once, ``tools/kernel_probe.py snn`` timed
+    the vgg9 chain at B=8 at 211 us as two waves of 16-block clusters and
+    130 us as one wave of 8-block ones."""
+    return min((cl for cl in _CLUSTERS if active.get(cl, 0) >= 1),
+               key=lambda cl: (-(-b // active[cl]), -cl))
+
+
+def _stage_mask(stage: Sequence[bool]) -> int:
+    return sum(1 << i for i, st in enumerate(stage) if st)
+
+
+@functools.cache
+def _launch_plan(geoms: Tuple[Tuple, ...], t_steps: int,
+                 b: int) -> Tuple[int, int, Tuple[bool, ...], bool, int]:
+    """(cl, tc, stage, ksplit, smem) for a launch, cached per chain
+    geometry, T and B.  Holds the kernel's own size function against the
+    wrapper's (the minimum against the planner's formula) and never
+    exceeds ``SMEM_LIMIT``.  The geometry rows the kernel reads are
+    cached beside it (:func:`_geom_c`)."""
+    lib = _lib()
+    geom_c = _geom_c(geoms)
+    need = _smem.group_rollout_smem_bytes(geom_smem_dicts(geoms))
+    kernel_min = lib.fused_group_smem_bytes(geom_c, len(geoms), 1,
+                                            _CLUSTERS[0], 0, 0)
+    if kernel_min != need:
+        raise ValueError(
+            f"fused_group: the kernel's least shared memory is "
+            f"{kernel_min} bytes for chain {geoms}, kernels/smem.py "
+            f"budgets {need}")
+    bits = next(g[1] for g in geoms if g[0] == "conv")
+    plans, active = {}, {}
+    for cl in _CLUSTERS:
+        tc, stage, ksplit = _plan(geoms, t_steps, cl)
+        smem = _group_smem_bytes(geoms, tc, cl, stage, ksplit)
+        kernel = lib.fused_group_smem_bytes(geom_c, len(geoms), tc, cl,
+                                            _stage_mask(stage), int(ksplit))
+        if kernel != smem or smem > _smem.SMEM_LIMIT:
+            raise ValueError(
+                f"fused_group: the kernel holds {kernel} bytes of shared "
+                f"memory at tc={tc}, cl={cl}, stage={stage}, "
+                f"ksplit={ksplit}, the wrapper planned {smem} (limit "
+                f"{_smem.SMEM_LIMIT})")
+        plans[cl] = (cl, tc, stage, ksplit, smem)
+        active[cl] = lib.fused_group_max_clusters(bits, cl, smem)
+    if max(active.values()) < 1:
+        raise RuntimeError(f"fused_group: no cluster of {_CLUSTERS} blocks "
+                           f"fits on this card for chain {geoms} "
+                           f"(active clusters {active})")
+    return plans[_cluster_size(b, active)]
 
 
 def _normalize_members(members: Sequence[Tuple], h: int, w: int,
@@ -166,7 +290,10 @@ def geom_smem_dicts(geoms: Sequence[Tuple]) -> List[Dict]:
     return out
 
 
-def _geom_ints(geoms: Sequence[Tuple]):
+@functools.cache
+def _geom_c(geoms: Tuple[Tuple, ...]):
+    """The kernel's geometry rows as a ctypes int array (read-only, so
+    one array per chain serves every launch)."""
     rows = []
     for g in geoms:
         row = [0, *g[1:]] if g[0] == "conv" else [1, *g[1:]]
@@ -232,42 +359,54 @@ def fused_group_rollout(
                 torch.zeros((0, b, hf, wf, n_lc // 32), dtype=torch.int32,
                             device=dev))
 
+    cl, tc, stage, ksplit, _ = _launch_plan(geoms, t_steps, b)
     lib = _lib()
-    geom_c = _geom_ints(geoms)
-    kernel_smem = lib.fused_group_smem_bytes(geom_c, len(geoms))
-    if kernel_smem != need:
-        raise ValueError(
-            f"fused_group: the kernel holds {kernel_smem} bytes of shared "
-            f"memory for chain {geoms}, kernels/smem.py budgets {need}")
-
-    words, thetas, v_sizes = [], [], []
-    for g, (_, qct, theta) in zip((g for g in geoms if g[0] == "conv"),
-                                  convs):
-        n_pad = g[6]
-        wpk = F.pad(qct.data.to(torch.int32), (0, 0, 0, n_pad - qct.c_out))
-        # (n_pad, wpr) -> (n_pad/32, wpr, 32): lane-fast words
-        words.append(wpk.reshape(n_pad // 32, 32, -1).transpose(1, 2)
-                     .reshape(-1))
-        thetas.append(F.pad(theta, (0, n_pad - qct.c_out)))
-        v_sizes.append(b * g[4] * g[5] * n_pad)
-    w_all = torch.cat(words).contiguous()
-    th_all = torch.cat(thetas).contiguous()
-    vmem = torch.empty((sum(v_sizes),), dtype=torch.int32, device=dev)
+    geom_c = _geom_c(geoms)
+    n = len(members)
+    chunked = tc < t_steps
+    null = ctypes.c_void_p()
+    w_p, th_p, v_p = ([null] * n for _ in range(3))
+    vec_mask = 0
+    keep = []           # tensors the launch reads, alive until it is queued
+    v_out = None
+    last_ci = max(i for i, m in enumerate(members) if m[0] == "conv")
+    for i, (g, m) in enumerate(zip(geoms, members)):
+        if m[0] != "conv":
+            continue
+        _, qct, theta = m
+        wq = qct.data.to(torch.int32).contiguous()
+        th = theta.to(torch.int32).contiguous()
+        if i == last_ci:
+            scr = v_out = torch.empty((b, g[4] * g[5], g[6]),
+                                      dtype=torch.int32, device=dev)
+        elif chunked:
+            scr = torch.empty((b, g[4] * g[5], g[6]), dtype=torch.int32,
+                              device=dev)
+        else:
+            scr = None
+        keep += [wq, th, scr]
+        w_p[i] = ctypes.c_void_p(wq.data_ptr())
+        th_p[i] = ctypes.c_void_p(th.data_ptr())
+        v_p[i] = null if scr is None else ctypes.c_void_p(scr.data_ptr())
+        if _conv_wpr(g) % 4 == 0 and wq.data_ptr() % 16 == 0:
+            vec_mask |= 1 << i
     sp = spikes_packed_t.to(torch.int32).contiguous()
     out = torch.empty((t_steps, b, hf * wf, n_lc // 32), dtype=torch.int32,
                       device=dev)
+    arr = ctypes.c_void_p * n
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_group_launch(
-            sp.data_ptr(), w_all.data_ptr(), th_all.data_ptr(),
-            vmem.data_ptr(), out.data_ptr(), geom_c, len(geoms), t_steps, b,
+            sp.data_ptr(), arr(*w_p), arr(*th_p), arr(*v_p), out.data_ptr(),
+            geom_c, n, t_steps, b, tc, cl, _stage_mask(stage), int(ksplit),
+            vec_mask,
             leak_shift, int(v_reset_q), int(bool(soft_reset)), stream)
     if err != 0:
         raise RuntimeError(
             f"fused_group kernel launch failed: CUDA error {err} "
             f"({lib.fused_group_error_string(err).decode()})")
     fused_group_rollout.launches += 1
-    v = vmem[sum(v_sizes[:-1]):].reshape(b, h_lc, w_lc, n_lc)
+    v = v_out.reshape(b, h_lc, w_lc, n_lc)
     return (v[..., :last_qct.c_out],
             out.reshape(t_steps, b, hf, wf, n_lc // 32))
 

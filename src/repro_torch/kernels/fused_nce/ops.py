@@ -4,11 +4,13 @@
 * a CUDA tensor launches the hand-written kernel ``csrc/fused_nce.cu``,
   or raises.  There is no fallback from one to the other.
 
-Around the kernel, this wrapper pads the output neurons to a multiple of
-32 (zero weight rows, masked by ``n_out`` inside the kernel) and slices
-the membrane back.  The kernel reads ``ceil(d_in/32)`` spike words per
-row and treats codes past ``d_in`` as zero, so stray bits past ``d_in``
-are inert, as in the plain version.
+The kernel reads the packed weights as they are, ``(d_out, wpr)`` words
+(neurons past ``d_out`` up to the next multiple of 32 stage as zero and
+are masked by ``n_out`` inside the kernel), and masks spike bits past
+``d_in``, so they stay inert as in the plain version.  The wrapper
+chooses the launch (:func:`_nce_plan`): batch rows per block ``rb`` (all
+T steps of a row stay in one block, whose LIF scan runs over them) and
+the cluster's contraction split.
 
 ``fused_nce_rollout.launches`` counts kernel launches (and nothing else).
 """
@@ -20,27 +22,80 @@ import functools
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core import packing
 from repro_torch.core.lif import as_theta_vector
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.fused_nce import ref as _ref
-from repro_torch.kernels.smem import SMEM_LIMIT
+from repro_torch.kernels.smem import N_SMS, SMEM_LIMIT
 from repro_torch.quant.formats import QuantizedTensor
+
+_SPLITS = (16, 8, 4, 2, 1)   # blocks per cluster the kernel takes
+
+
+def _nce_smem_bytes(t_steps: int, rb: int, kwords: int, split: int,
+                    bits: int) -> int:
+    """Shared memory of one block (``csrc/fused_nce.cu`` ``smem_words``):
+    the chunk's spike words (rows t*rb + r padded to 16, an odd stride),
+    the group's codes for the block's k-steps (a stride of 4 mod 32
+    words per neuron) and two int32 partial tiles."""
+    rows_pad = -(-t_steps * rb // 16) * 16
+    ks = -(-kwords // split)
+    sp_stride = ks | 1
+    w_stride = ks * bits + ((4 - ks * bits) & 31)
+    return 4 * (rows_pad * sp_stride + 32 * w_stride + 2 * rows_pad * 32)
+
+
+def _nce_plan(t_steps: int, m: int, kwords: int, bits: int,
+              n_pad: int) -> Tuple[int, int]:
+    """(rb, split): batch rows per block, at most 64 // T (and at least
+    one), so a block's T*rb rows fill 1-4 tensor-core row tiles; then the
+    largest contraction split that keeps the grid within one wave of
+    the card's SMs (no more blocks than spike words), raised until the
+    block fits in shared memory.  Raises when even 16 blocks do not."""
+    rb = max(1, min(m, 64 // t_steps))
+    base = (n_pad // 32) * -(-m // rb)
+    split = next((s for s in _SPLITS
+                  if base * s <= N_SMS and s <= kwords), 1)
+    while (_nce_smem_bytes(t_steps, rb, kwords, split, bits) > SMEM_LIMIT
+           and split < _SPLITS[0]):
+        split *= 2
+    need = _nce_smem_bytes(t_steps, rb, kwords, split, bits)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"fused_nce: T={t_steps}, {kwords} spike words at "
+                         f"w{bits} need {need} bytes of shared memory per "
+                         f"block > {SMEM_LIMIT} even split over "
+                         f"{split} blocks")
+    return rb, split
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_nce")
     lib.fused_nce_launch.argtypes = ([ctypes.c_void_p] * 5 +
-                                     [ctypes.c_int] * 11 + [ctypes.c_void_p])
+                                     [ctypes.c_int] * 13 + [ctypes.c_void_p])
     lib.fused_nce_launch.restype = ctypes.c_int
-    lib.fused_nce_smem_bytes.argtypes = [ctypes.c_int]
+    lib.fused_nce_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.fused_nce_smem_bytes.restype = ctypes.c_size_t
     lib.fused_nce_error_string.argtypes = [ctypes.c_int]
     lib.fused_nce_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _launch_plan(t_steps: int, m: int, kwords: int, bits: int,
+                 n_pad: int) -> Tuple[int, int]:
+    """:func:`_nce_plan`, cached per shape, held against the grid's limit
+    and the kernel's own shared-memory size."""
+    rb, split = _nce_plan(t_steps, m, kwords, bits, n_pad)
+    if -(-m // rb) > 65535:
+        raise ValueError(f"fused_nce: grid too large for {m} rows")
+    smem = _lib().fused_nce_smem_bytes(t_steps, rb, kwords, split, bits)
+    planned = _nce_smem_bytes(t_steps, rb, kwords, split, bits)
+    if smem != planned:
+        raise ValueError(f"fused_nce: the kernel holds {smem} bytes of "
+                         f"shared memory, the wrapper planned {planned}")
+    return rb, split
 
 
 def fused_nce_rollout(
@@ -90,25 +145,21 @@ def fused_nce_rollout(
         return (torch.zeros((b, n), dtype=torch.int32, device=dev),
                 torch.zeros((0, b, n_pad // 32), dtype=torch.int32,
                             device=dev))
-    if -(-b // 8) > 65535:
-        raise ValueError(f"fused_nce: grid too large for {b} rows")
+    rb, split = _launch_plan(t_steps, b, kwords, qt.bits, n_pad)
     lib = _lib()
-    smem = lib.fused_nce_smem_bytes(kwords)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"fused_nce: d_in={d_in} needs {smem} bytes of "
-                         f"shared memory > {SMEM_LIMIT}")
     sp = spikes_packed_t.to(torch.int32).contiguous()
-    wpk = F.pad(qt.data.to(torch.int32), (0, 0, 0, n_pad - n)).contiguous()
-    thp = F.pad(theta, (0, n_pad - n)).contiguous()
+    wpk = qt.data.to(torch.int32).contiguous()
+    theta = theta.contiguous()
     v = torch.empty((b, n_pad), dtype=torch.int32, device=dev)
     out = torch.empty((t_steps, b, n_pad // 32), dtype=torch.int32,
                       device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_nce_launch(
-            sp.data_ptr(), wpk.data_ptr(), thp.data_ptr(), v.data_ptr(),
-            out.data_ptr(), t_steps, b, kwords, d_in, wpr, qt.bits, n_pad, n,
-            leak_shift, int(v_reset_q), int(bool(soft_reset)), stream)
+            sp.data_ptr(), wpk.data_ptr(), theta.data_ptr(), v.data_ptr(),
+            out.data_ptr(), t_steps, b, kwords, d_in, wpr, qt.bits, n, n_pad,
+            rb, split, leak_shift, int(v_reset_q), int(bool(soft_reset)),
+            stream)
     if err != 0:
         raise RuntimeError(
             f"fused_nce kernel launch failed: CUDA error {err} "

@@ -142,3 +142,81 @@ def test_launcher_serves_on_cpu(tmp_path, capsys):
                             str(tmp_path / "pkg.npz")])
     assert stats["requests"] == 5
     assert "saved + reloaded package" in capsys.readouterr().out
+
+
+def test_drained_stats_come_from_running_totals(model):
+    cfg = model.cfg
+    eng = SNNServeEngine(model, SNNEngineConfig(max_batch=2, buckets=(2,)),
+                         device="cpu")
+    for uid, img in enumerate(_images(cfg, 5, seed=2)):
+        eng.add_request(SNNRequest(uid=uid, image=img))
+    stats = eng.run_until_done()
+    assert stats["requests"] == 5 and stats["batches"] == 3
+    assert stats["buckets"] == {"2": 3}
+    assert stats["latency_p95_ms"] >= stats["latency_p50_ms"] > 0
+    req = eng.pop_result(0)
+    assert req.image is None and req.logits is not None
+    assert 0 not in eng.done and len(eng.done) == 4
+    for uid in range(1, 5):
+        eng.pop_result(uid)
+    drained = eng.stats()
+    assert drained["requests"] == 5
+    assert drained["images_per_s"] > 0
+    assert drained["latency_avg_ms"] > 0
+    assert drained["latency_max_ms"] >= stats["latency_p95_ms"]
+
+
+def test_close_drains_partial_bucket_then_refuses(model):
+    cfg = model.cfg
+    eng = SNNServeEngine(model, SNNEngineConfig(max_batch=4, buckets=(4,)),
+                         device="cpu")
+    images = _images(cfg, 3, seed=11)
+    for uid, img in enumerate(images):      # 3 < bucket: a partial batch
+        eng.add_request(SNNRequest(uid=uid, image=img))
+    stats = eng.close()
+    assert stats["requests"] == 3 and len(eng.queue) == 0
+    assert all(eng.pop_result(uid).logits is not None for uid in range(3))
+    assert eng.health()["closed"] is True
+    with pytest.raises(RuntimeError, match="closed"):
+        eng.add_request(SNNRequest(uid=9, image=images[0]))
+    assert eng.close()["requests"] == 3     # second close: no-op
+
+
+def test_context_manager_drains_only_on_clean_exit(model):
+    img = _images(model.cfg, 1, seed=12)[0]
+    ecfg = SNNEngineConfig(max_batch=2, buckets=(2,))
+    with SNNServeEngine(model, ecfg, device="cpu") as eng:
+        eng.add_request(SNNRequest(uid=0, image=img))
+    assert eng.total_requests == 1          # drained at __exit__
+    with pytest.raises(RuntimeError, match="boom"):
+        with SNNServeEngine(model, ecfg, device="cpu") as eng2:
+            eng2.add_request(SNNRequest(uid=0, image=img))
+            raise RuntimeError("boom")
+    assert eng2.total_requests == 0 and len(eng2.queue) == 0
+    assert eng2.health()["closed"] is True
+
+
+def test_health_keys_match_repro_engine(model):
+    jcfg = jdeploy_config("vgg9", 4)
+    jmodel = jdeploy(jsnn.init(jax.random.PRNGKey(0), jcfg), jcfg)
+    jeng = JServeEngine(jmodel, JEngineConfig(max_batch=2))
+    jeng.warmup()
+    eng = SNNServeEngine(model, SNNEngineConfig(max_batch=2), device="cpu")
+    eng.warmup()
+    jh, h = jeng.health(), eng.health()
+    jh.pop("watchdog", None)               # the watchdog is not ported
+    assert set(h) == set(jh)
+    for key in ("compile_cache", "model"):
+        assert set(h[key]) == set(jh[key])
+    assert h["compile_cache"] == jh["compile_cache"]
+    assert h["model"] == jh["model"]
+    assert h["queue_depth"] == 0 and h["closed"] is False
+    img = _images(model.cfg, 1)[0]
+    eng.add_request(SNNRequest(uid=0, image=img))
+    assert eng.health()["queue_depth"] == 1
+    eng.run_until_done()
+    h = eng.health()
+    assert h["undrained_results"] == 1 and h["requests_total"] == 1
+    assert h["batches_total"] == 1
+    eng.pop_result(0)
+    assert eng.health()["undrained_results"] == 0

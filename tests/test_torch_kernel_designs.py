@@ -14,7 +14,18 @@ the CUDA tests' tolerances:
   field's code, and bfloat16 rounding in integer ops;
 * the split softmax of ``kv_attention``: the live keys cut into
   contiguous shares (the kernel's plan), per-split (m, l, acc) merged
-  across the cluster's blocks, empty splits included.
+  across the cluster's blocks, empty splits included;
+* the int8 tensor-core fragments of ``fused_group`` and ``fused_nce``
+  (``csrc/int8_mma.cuh``): spike nibbles expanded to 0/1 bytes, codes
+  decoded to signed bytes, the m16n8k32 lane maps, and the quad-shuffle
+  assembly of a pixel's packed word with the ``n_out`` mask, bit for bit
+  against ``pack_bool``;
+* ``fused_group``'s member-major walk (each member over a T chunk, the
+  kernel's task assignment over the cluster, membranes carried per task
+  and across chunks) and ``fused_nce``'s K split over a cluster with the
+  T-scan epilogue, both bit-exact with the plain versions;
+* the wrappers' launch plans (cluster size, T chunk, weight staging,
+  contraction split) within ``SMEM_LIMIT``.
 """
 
 import numpy as np
@@ -22,12 +33,19 @@ import pytest
 import torch
 
 from repro_torch.core import packing
+from repro_torch.core.lif import lif_step_int
+from repro_torch.kernels import smem
+from repro_torch.kernels.fused_group import ops as group_ops
+from repro_torch.kernels.fused_group.ref import (
+    fused_group_rollout_torch, maxpool_packed)
+from repro_torch.kernels.fused_nce import ops as nce_ops
+from repro_torch.kernels.fused_nce.ref import fused_nce_rollout_torch
 from repro_torch.kernels.kv_attention import ops as kv_ops
 from repro_torch.kernels.kv_attention import ref as kv_ref
 from repro_torch.kernels.packed_qmatmul import ops as qmm_ops
 from repro_torch.kernels.packed_qmatmul import ref as qmm_ref
 from repro_torch.quant.formats import PrecisionConfig
-from repro_torch.quant.ptq import quantize
+from repro_torch.quant.ptq import quantize, quantize_conv
 
 
 # --- shape choices ----------------------------------------------------------
@@ -320,3 +338,484 @@ def test_split_softmax_empty_cache_is_zeros():
                          lens=torch.zeros(2, dtype=torch.int32), window=0,
                          split=8)
     assert torch.equal(got, torch.zeros_like(got))
+
+
+# --- int8 tensor-core fragments (csrc/int8_mma.cuh) -------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _spikes_s8(word, nib):
+    """``spikes_s8``: nibble ``nib`` of a spike word -> four 0/1 bytes."""
+    nv = (int(word) & _M32) >> (4 * nib) & 0xF
+    return (nv * 0x00204081) & 0x01010101
+
+
+def _codes_s8(wk, half, q, bits):
+    """``codes_s8``: B register ``half`` of lane quad index ``q`` from the
+    ``bits`` words of a k-step, fields spread to bytes and re-centred."""
+    off = (half * 16 + q * 4) * bits
+    e = (int(wk[off >> 5]) & _M32) >> (off & 31)
+    if bits == 4:
+        e &= 0xFFFF
+        e = (e | (e << 8)) & 0x00FF00FF
+        e = (e | (e << 4)) & 0x0F0F0F0F
+    elif bits == 2:
+        e &= 0xFF
+        e = (e | (e << 12)) & 0x000F000F
+        e = (e | (e << 6)) & 0x03030303
+    add = (128 - (1 << (bits - 1))) * 0x01010101
+    return ((e + add) & _M32) ^ 0x80808080
+
+
+def _s8(reg):
+    """The four signed bytes of a register, lowest first."""
+    return [((reg >> (8 * i) & 0xFF) ^ 0x80) - 0x80 for i in range(4)]
+
+
+def _mma_m16n8k32(a, b):
+    """mma.sync m16n8k32 s8: per-lane A (4 regs) and B (2 regs) fragments
+    -> per-lane C (4 s32), through the PTX fragment maps."""
+    am = np.zeros((16, 32), np.int64)
+    bm = np.zeros((32, 8), np.int64)
+    for lane in range(32):
+        g, q = lane >> 2, lane & 3
+        am[g, 4 * q:4 * q + 4] = _s8(a[lane][0])
+        am[g + 8, 4 * q:4 * q + 4] = _s8(a[lane][1])
+        am[g, 16 + 4 * q:20 + 4 * q] = _s8(a[lane][2])
+        am[g + 8, 16 + 4 * q:20 + 4 * q] = _s8(a[lane][3])
+        bm[4 * q:4 * q + 4, g] = _s8(b[lane][0])
+        bm[16 + 4 * q:20 + 4 * q, g] = _s8(b[lane][1])
+    d = am @ bm
+    return [(d[l >> 2, 2 * (l & 3)], d[l >> 2, 2 * (l & 3) + 1],
+             d[(l >> 2) + 8, 2 * (l & 3)], d[(l >> 2) + 8, 2 * (l & 3) + 1])
+            for l in range(32)]
+
+
+def _tile_product(words16, wrows, bits):
+    """One 16-row x 32-channel tile over a run of k-steps, the kernels'
+    way: ``words16`` (16, ksteps) spike words, ``wrows`` (32, ksteps *
+    bits) code words; 4 accumulators of 8 channels per lane.  Returns
+    acc[lane][j][e]."""
+    acc = [[[0] * 4 for _ in range(4)] for _ in range(32)]
+    for kq in range(words16.shape[1]):
+        a = []
+        for lane in range(32):
+            g, q = lane >> 2, lane & 3
+            lo, hi = words16[g, kq], words16[g + 8, kq]
+            a.append((_spikes_s8(lo, q), _spikes_s8(hi, q),
+                      _spikes_s8(lo, q + 4), _spikes_s8(hi, q + 4)))
+        for j in range(4):
+            b = []
+            for lane in range(32):
+                row = wrows[j * 8 + (lane >> 2), kq * bits:(kq + 1) * bits]
+                b.append((_codes_s8(row, 0, lane & 3, bits),
+                          _codes_s8(row, 1, lane & 3, bits)))
+            c = _mma_m16n8k32(a, b)
+            for lane in range(32):
+                for e in range(4):
+                    acc[lane][j][e] += int(c[lane][e])
+    return acc
+
+
+def _quad_words(fire, q_of_lane):
+    """Each lane's partial words for pixels g and g+8 from its fire bits
+    fire[lane][j][e], then the two xor-shuffles over the quad."""
+    lo = [0] * 32
+    hi = [0] * 32
+    for lane in range(32):
+        q = q_of_lane(lane)
+        for j in range(4):
+            for e in range(4):
+                bit = int(fire[lane][j][e]) << (j * 8 + 2 * q + (e & 1))
+                if e < 2:
+                    lo[lane] |= bit
+                else:
+                    hi[lane] |= bit
+    for mask in (1, 2):          # __shfl_xor_sync(w, 1), then (w, 2)
+        lo = [lo[l] | lo[l ^ mask] for l in range(32)]
+        hi = [hi[l] | hi[l ^ mask] for l in range(32)]
+    return lo, hi
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_code_decode_is_signed_bytes(bits):
+    """Every code of every field position decodes to code - 2^(bits-1)."""
+    vpw = 32 // bits
+    vals = np.arange(32) % (1 << bits) - (1 << (bits - 1))
+    for shift in range(1 << bits):
+        codes = np.roll(vals, shift)
+        wk = packing.pack_np(codes[None], bits)[0]
+        for half in (0, 1):
+            for q in range(4):
+                k0 = half * 16 + q * 4
+                assert _s8(_codes_s8(wk, half, q, bits)) == list(
+                    codes[k0:k0 + 4])
+    assert len(wk) == bits and vpw * bits == 32
+
+
+@pytest.mark.parametrize("n_out", [36, 100, 512])
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_fragment_lane_map_and_quad_words_match_pack_bool(n_out, bits):
+    """A 16-pixel x 32-channel tile of every 32-channel group of a layer
+    with ``n_out`` channels: the m16n8k32 product through the lane maps
+    equals the plain product, and LIF on the accumulator positions with
+    the n_out mask before the reset, then the quad's shuffles, gives
+    pack_bool's words bit for bit (pixel g from lane 4g's lo word, pixel
+    g+8 from its hi word)."""
+    rng = np.random.default_rng(n_out * 10 + bits)
+    ksteps = 3
+    n_pad = -(-n_out // 32) * 32
+    spikes = rng.random((16, 32 * ksteps)) < 0.3
+    words16 = packing.pack_np(spikes.astype(np.int32), 1)
+    qmax = (1 << (bits - 1)) - 1
+    codes = rng.integers(-qmax - 1, qmax + 1, (n_out, 32 * ksteps))
+    wq = packing.pack_np(codes, bits)
+    theta = rng.integers(1, 4 * qmax + 2, n_out)
+    v0 = rng.integers(-3 * qmax, 3 * qmax, (16, n_pad))
+    cur = spikes.astype(np.int64) @ codes.T.astype(np.int64)
+    v_ref, s_ref = lif_step_int(
+        torch.from_numpy(v0[:, :n_out].astype(np.int32)),
+        torch.from_numpy(cur.astype(np.int32)), leak_shift=2,
+        threshold_q=torch.from_numpy(theta.astype(np.int32)), v_reset_q=-1,
+        soft_reset=True)
+    want = packing.pack_bool(s_ref)                     # (16, n_pad / 32)
+    for gr in range(n_pad // 32):
+        rows = np.zeros((32, ksteps * bits), np.int64)
+        live = min(32, n_out - gr * 32)
+        rows[:live] = wq[gr * 32:gr * 32 + live]
+        acc = _tile_product(words16, rows, bits)
+        fire = [[[False] * 4 for _ in range(4)] for _ in range(32)]
+        for lane in range(32):
+            g, q = lane >> 2, lane & 3
+            for j in range(4):
+                for e in range(4):
+                    p = g + 8 * (e >> 1)
+                    ch = gr * 32 + j * 8 + 2 * q + (e & 1)
+                    if ch < n_out:
+                        assert acc[lane][j][e] == cur[p, ch]
+                    v = int(v0[p, ch])
+                    v = v - (v >> 2) + acc[lane][j][e]
+                    fire[lane][j][e] = ch < n_out and v >= theta[ch]
+                    if fire[lane][j][e]:
+                        v -= int(theta[ch])
+                    if ch < n_out:
+                        assert v == int(v_ref[p, ch])
+        lo, hi = _quad_words(fire, lambda lane: lane & 3)
+        for g in range(8):
+            for lane in range(4 * g, 4 * g + 4):   # every lane of the quad
+                assert (lo[lane] ^ int(want[g, gr])) & _M32 == 0
+                assert (hi[lane] ^ int(want[g + 8, gr])) & _M32 == 0
+
+
+# --- fused_group: the member-major walk -------------------------------------
+
+
+def _chain(spec, c_in, bits, seed):
+    g = np.random.default_rng(seed)
+    members, c = [], c_in
+    for item in spec:
+        if item == "P":
+            members.append(("pool", 2))
+            continue
+        wf = torch.from_numpy((g.standard_normal((3, 3, c, item)) * 0.2)
+                              .astype(np.float32))
+        qct = quantize_conv(wf, PrecisionConfig(bits=bits))
+        qmax = (1 << (bits - 1)) - 1
+        theta = torch.from_numpy(
+            g.integers(1, 18 * qmax + 2, item).astype(np.int32))
+        members.append(("conv", qct, theta))
+        c = item
+    return tuple(members)
+
+
+def _assignment(groups, tiles, cl):
+    """The kernel's task assignment of a conv member (``conv_member``):
+    every block's (group, pixel tile) units."""
+    out = {}
+    for rank in range(cl):
+        gl_n = min(groups, cl)
+        gl = rank % gl_n
+        nb = (cl - 1 - gl) // gl_n + 1
+        bi = rank // gl_n
+        owned = (groups - 1 - gl) // gl_n + 1
+        my_tiles = (tiles - 1 - bi) // nb + 1 if bi < tiles else 0
+        out[rank] = [(gl + (u // my_tiles) * gl_n,
+                      bi + (u % my_tiles) * nb)
+                     for u in range(owned * my_tiles)]
+    return out
+
+
+def _member_major(planes, members, *, tc, cl, leak_shift, v_reset_q,
+                  soft_reset):
+    """The fused_group kernel's walk: per chunk of ``tc`` steps, each
+    member over the whole chunk; a conv member's units (16 pixels x 32
+    channels) dealt over the cluster as the kernel deals them, each
+    carrying its membrane over the chunk's steps and through a scratch
+    across chunks; planes stay packed words between members."""
+    t_all, b = planes.shape[:2]
+    x_all = planes
+    scratch = {}
+    outs, v_last = [], None
+    for t0 in range(0, t_all, tc):
+        x = x_all[t0:t0 + tc]
+        nt = x.shape[0]
+        for mi, m in enumerate(members):
+            if m[0] == "pool":
+                ch = members[mi - 1][1].c_out
+                x = maxpool_packed(x, ch, m[1])
+                continue
+            _, qct, theta = m
+            h, w = x.shape[2:4]
+            npix = h * w
+            groups = -(-qct.c_out // 32)
+            tiles = -(-npix // 16)
+            codes = packing.unpack(qct.data, qct.bits, qct.k_flat).to(
+                torch.int64)                       # (c_out, k*k*cin_pad)
+            s = packing.unpack_bool(x, qct.c_in_pad).to(torch.int64)
+            s = torch.nn.functional.pad(s, (0, 0, 1, 1, 1, 1))
+            # (nt, b, npix, 9*cin_pad) receptive fields, tap-major
+            cols = torch.stack([s[:, :, di:di + h, dj:dj + w]
+                                for di in range(3) for dj in range(3)],
+                               dim=4).reshape(nt, b, npix, -1)
+            fire = torch.zeros((nt, b, npix, groups * 32), dtype=torch.int32)
+            seen = []
+            for rank, units in _assignment(groups, tiles, cl).items():
+                for gr, tile in units:
+                    seen.append((gr, tile))
+                    px = torch.arange(tile * 16, min(tile * 16 + 16, npix))
+                    chs = torch.arange(gr * 32, min(gr * 32 + 32,
+                                                    qct.c_out))
+                    key = (mi, gr, tile)
+                    v = scratch.get(key, torch.zeros(
+                        (b, len(px), len(chs)), dtype=torch.int64))
+                    th = theta[chs].to(torch.int64)
+                    for t in range(nt):
+                        cur = cols[t][:, px] @ codes[chs].T
+                        v = v - (v >> leak_shift) + cur
+                        f = v >= th
+                        v = torch.where(f, v - th if soft_reset
+                                        else torch.full_like(v, v_reset_q),
+                                        v)
+                        fire[t][:, px[:, None], chs[None, :]] = \
+                            f.to(torch.int32)
+                    scratch[key] = v
+                    if mi == max(i for i, mm in enumerate(members)
+                                 if mm[0] == "conv"):
+                        if v_last is None:
+                            v_last = torch.zeros((b, npix, qct.c_out),
+                                                 dtype=torch.int64)
+                        v_last[:, px[:, None], chs[None, :]] = v
+            assert sorted(seen) == [(g, t) for g in range(groups)
+                                    for t in range(tiles)]
+            x = packing.pack_bool(fire.reshape(nt, b, h, w, -1))
+        outs.append(x)
+    return v_last, torch.cat(outs)
+
+
+@pytest.mark.parametrize("spec,hw,c_in", [
+    ([40, "P", 36, "P"], 12, 20),          # chip_smoke's ragged chain
+    ([32, "P", 64, 64, "P"], 8, 32),       # a narrow vgg9-like chain
+])
+@pytest.mark.parametrize("tc", [1, 3, 5])
+@pytest.mark.parametrize("cl", [16, 8])
+def test_member_major_walk_matches_plain(spec, hw, c_in, tc, cl):
+    bits = 4
+    members = _chain(spec, c_in, bits, seed=hw + tc)
+    s = np.random.default_rng(hw * 3 + tc).random((5, 2, hw, hw, c_in))
+    planes = torch.from_numpy(packing.pack_np((s < 0.3).astype(np.int32),
+                                              1))
+    kw = dict(leak_shift=3, v_reset_q=-2, soft_reset=tc != 3)
+    pv, ps = fused_group_rollout_torch(planes, members, **kw)
+    v, out = _member_major(planes, members, tc=tc, cl=cl, **kw)
+    assert torch.equal(out, ps)
+    assert torch.equal(v.reshape(pv.shape).to(torch.int32), pv)
+    assert ps.any()
+
+
+# --- fused_nce: the K split and the T-scan epilogue -------------------------
+
+
+def _nce_emulated(spikes, qt, d_in, theta, *, rb, split, leak_shift,
+                  v_reset_q, soft_reset):
+    """The fused_nce kernel's arithmetic for one (rb, split) launch: per
+    (group, row chunk) cluster, block s takes spike words [s*ks, s*ks+ks),
+    its warps the two halves of them; bits past d_in masked, code words
+    past the row's end zero; partial sums per local row t*rb + r; then
+    the epilogue sums the 2*split partials and scans T."""
+    t_steps, m, kwords = spikes.shape
+    n = qt.shape[0]
+    n_pad = -(-n // 32) * 32
+    wpr = qt.data.shape[1]
+    sp = spikes.numpy().astype(np.int64) & _M32
+    if d_in % 32:
+        sp[..., -1] &= (1 << (d_in % 32)) - 1
+    ks = -(-kwords // split)
+    wpad = np.zeros((n_pad, ks * split * qt.bits), np.int64)
+    wpad[:n, :wpr] = qt.data.numpy().astype(np.int64) & _M32
+    bits = qt.bits
+    # signed codes of every k, from the padded words (zeros decode -bias)
+    codes = packing.unpack_np(wpad.astype(np.uint32).astype(np.int32),
+                              bits, ks * split * 32).astype(np.int64)
+    ones = packing.unpack_np(sp.astype(np.uint32).astype(np.int32), 1,
+                             kwords * 32).astype(np.int64)
+    v_out = np.zeros((m, n_pad), np.int64)
+    s_out = np.zeros((t_steps, m, n_pad), bool)
+    th = np.zeros(n_pad, np.int64)
+    th[:n] = theta
+    for r0 in range(0, m, rb):
+        rows = [(t, r) for t in range(t_steps) for r in range(rb)]
+        part = np.zeros((split, 2, len(rows), n_pad), np.int64)
+        for s in range(split):
+            kw = max(0, min(ks, kwords - s * ks))
+            halves = ((0, (kw + 1) // 2), ((kw + 1) // 2, kw))
+            for hf, (lo, hi) in enumerate(halves):
+                k0, k1 = (s * ks + lo) * 32, (s * ks + hi) * 32
+                for j, (t, r) in enumerate(rows):
+                    if r0 + r < m:
+                        part[s, hf, j] = ones[t, r0 + r, k0:k1] @ \
+                            codes[:, k0:k1].T
+        for r in range(rb):
+            if r0 + r >= m:
+                break
+            v = np.zeros(n_pad, np.int64)
+            for t in range(t_steps):
+                i_syn = part[:, :, t * rb + r].sum(axis=(0, 1))
+                v = v - (v >> leak_shift) + i_syn
+                f = (v >= th) & (np.arange(n_pad) < n)
+                v = np.where(f, v - th if soft_reset else v_reset_q, v)
+                s_out[t, r0 + r] = f
+            v_out[r0 + r] = v
+    return (torch.from_numpy(v_out[:, :n].astype(np.int32)),
+            packing.pack_bool(torch.from_numpy(s_out)))
+
+
+@pytest.mark.parametrize("m,d_in,d_out", [(8, 4096, 96), (3, 1000, 100),
+                                          (13, 1000, 36)])
+@pytest.mark.parametrize("split", nce_ops._SPLITS)
+def test_nce_k_split_and_t_scan_match_plain(m, d_in, d_out, split):
+    bits = {4096: 4, 1000: 8}[d_in] if d_out != 36 else 2
+    g = np.random.default_rng(d_in + m + split)
+    s = g.random((4, m, d_in)) < 0.2
+    spikes = torch.from_numpy(packing.pack_np(s.astype(np.int32), 1))
+    if d_in % 32:                        # stray bits past d_in are inert
+        spikes[..., -1] |= np.int32(-(1 << (d_in % 32)))
+    wf = torch.from_numpy((g.standard_normal((d_out, d_in)) * 0.05)
+                          .astype(np.float32))
+    qt = quantize(wf, PrecisionConfig(bits=bits))
+    qmax = (1 << (bits - 1)) - 1
+    theta = g.integers(1, 8 * qmax + 2, d_out).astype(np.int32)
+    kw = dict(leak_shift=3, v_reset_q=-2, soft_reset=split != 4)
+    pv, ps = fused_nce_rollout_torch(spikes, qt, d_in=d_in,
+                                     threshold_q=torch.from_numpy(theta),
+                                     **kw)
+    rb, _ = nce_ops._nce_plan(4, m, spikes.shape[-1], bits, 128)
+    for rows in sorted({rb, 1}):
+        v, out = _nce_emulated(spikes, qt, d_in, theta, rb=rows,
+                               split=split, **kw)
+        assert torch.equal(v, pv) and torch.equal(out, ps)
+    assert ps.any()
+
+
+# --- the launch plans -------------------------------------------------------
+
+# chip_smoke.py's group_chains (hw, c_in, spec), resnet18 blocks.7 included
+_SMOKE_CHAINS = {
+    "vgg9": (32, 64, [64, "P", 128, 128, "P", 256, "P"]),
+    "blocks.0": (32, 64, [64, 64]),
+    "blocks.3": (16, 128, [128, 128]),
+    "blocks.5": (8, 256, [256, 256]),
+    "blocks.7": (4, 512, [512, 512]),
+    "ragged": (12, 20, [40, "P", 36, "P"]),
+}
+
+
+def _geoms(hw, c_in, spec, bits):
+    out, c, h = [], c_in, hw
+    for item in spec:
+        if item == "P":
+            out.append(("pool", 2, h, h, -(-c // 32) * 32))
+            h //= 2
+        else:
+            out.append(("conv", bits, 3, -(-c // 32) * 32, h, h,
+                        -(-item // 32) * 32, item))
+            c = item
+    return tuple(out)
+
+
+@pytest.mark.parametrize("name", sorted(_SMOKE_CHAINS))
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_group_plans_stay_within_smem(name, bits):
+    geoms = _geoms(*_SMOKE_CHAINS[name], bits)
+    need = smem.group_rollout_smem_bytes(group_ops.geom_smem_dicts(geoms))
+    for cl in group_ops._CLUSTERS:
+        # the kernel's least size is the planner's formula
+        assert group_ops._group_smem_bytes(
+            geoms, 1, cl, [False] * len(geoms), False) == need
+        for t_steps in (1, 4, 12, 40):
+            tc, stage, ksplit = group_ops._plan(geoms, t_steps, cl)
+            assert 1 <= tc <= t_steps
+            assert group_ops._group_smem_bytes(
+                geoms, tc, cl, stage, ksplit) <= smem.SMEM_LIMIT
+            assert not any(st and g[0] == "pool"
+                           for g, st in zip(geoms, stage))
+    # at T=4 every chain of the served paths runs whole, codes staged and
+    # warps sharing units, on a 16-block cluster (blocks.7 at 4 bits: 74
+    # KB of codes a block)
+    tc, stage, ksplit = group_ops._plan(geoms, 4, 16)
+    assert tc == 4 and ksplit and all(st for g, st in zip(geoms, stage)
+                                      if g[0] == "conv")
+    if name == "blocks.7" and bits == 4:
+        # 4608 codes = 576 words a channel, padded to 580
+        assert group_ops._stage_words(geoms[0], 16) * 4 == 32 * 580 * 4
+
+
+def test_group_plan_chunks_t_and_drops_staging_only_when_forced():
+    vgg9 = _geoms(*_SMOKE_CHAINS["vgg9"], 4)
+    tc, _, ksplit = group_ops._plan(vgg9, 12, 16)
+    assert ksplit and tc < 12                       # two chunks at T=12
+    # blocks.7 at 8 bits on an 8-block cluster: two groups of codes a
+    # block (295 KB) do not fit beside even one step: read from L2
+    b7 = _geoms(*_SMOKE_CHAINS["blocks.7"], 8)
+    assert group_ops._plan(b7, 4, 8) == (1, (False, False), False)
+    # the planner's largest admissible chain still launches
+    big = (("conv", 4, 3, 64, 118, 118, 64, 64), ("conv", 4, 3, 64, 118,
+                                                 118, 64, 64))
+    need = smem.group_rollout_smem_bytes(group_ops.geom_smem_dicts(big))
+    assert need <= smem.SMEM_LIMIT
+    tc, stage, ksplit = group_ops._plan(big, 4, 16)
+    assert tc == 1 and group_ops._group_smem_bytes(
+        big, tc, 16, stage, ksplit) <= smem.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("b,active,want", [
+    # the H100 runs 7 clusters of 16 at once, so B=8 at 16 takes two
+    # waves; the largest cluster that takes one wins
+    (8, {16: 7, 15: 8, 8: 15}, 15),
+    (8, {16: 7, 8: 15}, 8),
+    (8, {16: 8, 8: 16}, 16),      # one wave either way: the largest
+    (8, {16: 0, 8: 16}, 8),       # no 16-block cluster fits
+    (1, {16: 7, 8: 15}, 16),
+    (64, {16: 8, 8: 16}, 8),      # 8 waves of 16, 4 of 8
+])
+def test_cluster_size_takes_the_fewest_waves(b, active, want):
+    assert group_ops._cluster_size(b, active) == want
+
+
+@pytest.mark.parametrize("units,ks", [(1, 8), (2, 4), (3, 2), (4, 2),
+                                      (5, 1), (8, 1), (9, 1)])
+def test_k_split_teams_fill_the_block_and_cover_every_k_step(units, ks):
+    """The kernel's ``team_size``: teams of ks warps, at most 4 teams
+    when ks > 1 (the tiles the plan reserves), every warp busy when the
+    units allow; each team's k-step ranges [r*nk/ks, (r+1)*nk/ks) cover
+    every k-step once (vgg9 convs.4: 9 taps x 4 words)."""
+    got = 8 if units <= 1 else 4 if units == 2 else 2 if units <= 4 else 1
+    assert got == ks
+    teams = 8 // ks                       # 8 warps a block
+    assert ks == 1 or teams <= 4
+    busy = min(units, teams) * ks
+    assert busy >= min(units, 8) and (units > 4 or busy >= 6)
+    for nk in (18, 36, 144):
+        spans = [range(r * nk // ks, (r + 1) * nk // ks) for r in range(ks)]
+        assert sorted(k for sp in spans for k in sp) == list(range(nk))
+    assert group_ops._RED_WORDS == 4 * 4 * 16 * 32

@@ -108,6 +108,33 @@ def test_fused_nce_kernel_matches_plain(cuda, m, d_in, d_out, bits, soft):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("soft", [True, False])
+@pytest.mark.parametrize("m,d_in,d_out", [
+    (1, 4096, 512), (3, 4096, 512), (8, 4096, 512), (64, 4096, 512),
+    (8, 1000, 100),
+])
+def test_fused_nce_every_batch_bits_and_reset(cuda, m, d_in, d_out, bits,
+                                               soft):
+    """Any m (the served buckets 1-8 and 64), the ragged 1000 -> 100, at
+    every contraction split the wrapper picks for them."""
+    seed = m * 7 + d_in + bits
+    spikes = _spikes((4, m, d_in), seed).to(cuda)
+    wf = torch.from_numpy((np.random.default_rng(seed).standard_normal(
+        (d_out, d_in)) * 0.05).astype(np.float32))
+    qt = quantize(wf, PrecisionConfig(bits=bits)).to(cuda)
+    kw = dict(d_in=d_in, leak_shift=3, v_reset_q=-2, soft_reset=soft,
+              threshold_q=_theta(seed, d_out, bits).mul(2).to(cuda))
+    pv, ps = fused_nce_rollout_torch(spikes, qt, **kw)
+    before = nce_ops.fused_nce_rollout.launches
+    kv, ks = nce_ops.fused_nce_rollout(spikes, qt, **kw)
+    torch.cuda.synchronize()
+    assert nce_ops.fused_nce_rollout.launches == before + 1
+    assert torch.equal(kv, pv) and torch.equal(ks, ps)
+    assert ps.any()
+
+
+@pytest.mark.cuda
 def test_empty_rollout_launches_nothing(cuda):
     qct = quantize_conv(torch.randn(3, 3, 32, 32),
                         PrecisionConfig(bits=4)).to(cuda)
@@ -156,6 +183,41 @@ def test_fused_group_kernel_matches_plain(cuda, hw, c_in, spec, bits, soft):
     assert kv.shape == pv.shape and ks.shape == ps.shape
     assert torch.equal(kv, pv) and torch.equal(ks, ps)
     assert pv.any()
+
+
+_VGG9 = (32, 64, [64, "P", 128, 128, "P", 256, "P"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("soft", [True, False])
+@pytest.mark.parametrize("b,t_steps,chain", [
+    (8, 4, _VGG9),                        # the served configuration
+    (1, 12, _VGG9),                       # T in two chunks (tc = 10-11)
+    (3, 1, (32, 64, [64, 64])),           # resnet18 blocks.0, one step
+    (3, 4, (4, 512, [512, 512])),         # resnet18 blocks.7
+])
+def test_fused_group_batches_steps_and_chunks(cuda, b, t_steps, chain,
+                                              bits, soft):
+    hw, c_in, spec = chain
+    members = _group_members(spec, c_in, bits, hw + bits + b, cuda)
+    planes = _spikes((t_steps, b, hw, hw, c_in), hw * 5 + b).to(cuda)
+    kw = dict(leak_shift=3, v_reset_q=-3, soft_reset=soft)
+    pv, ps = fused_group_rollout_torch(planes, members, **kw)
+    before = group_ops.fused_group_rollout.launches
+    kv, ks = group_ops.fused_group_rollout(planes, members, **kw)
+    torch.cuda.synchronize()
+    assert group_ops.fused_group_rollout.launches == before + 1
+    assert kv.shape == pv.shape and ks.shape == ps.shape
+    assert torch.equal(kv, pv) and torch.equal(ks, ps)
+    assert pv.any() and ps.any()
+    geoms = group_ops._chain_geoms(
+        group_ops._normalize_members(members, hw, hw, planes.shape[-1]),
+        hw, hw)
+    _, tc, _, _, smem_bytes = group_ops._launch_plan(geoms, t_steps, b)
+    assert smem_bytes <= group_ops._smem.SMEM_LIMIT
+    if t_steps == 12:
+        assert tc < t_steps               # the case is chunked
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Closer looks at the LM kernels on one NVIDIA GPU than chip_smoke.py's.
+"""Closer looks at the kernels on one NVIDIA GPU than chip_smoke.py's.
 
-    python3 tools/kernel_probe.py
+    python3 tools/kernel_probe.py          # all three
+    python3 tools/kernel_probe.py snn      # the fused_group probe alone
 
 1. ``packed_qmatmul`` per linear of olmo-1b's shapes (2048->2048,
    2048->8192, 8192->2048, W4, bf16 x) at M = 1, 8, 256 and 4096: device
@@ -16,6 +17,14 @@
    (globaltimer ns from the first block's start, median over every 64th
    block) with 8 and 2 blocks per (batch row, KV head), launched through
    the library's C entry point.
+3. ``fused_group`` at w4, T=4, B=8: the vgg9 chain before and after 3 s
+   of back-to-back launches with the SM clock from ``nvidia-smi``; each
+   served chain under forced launch plans; the vgg9 and blocks.7 chains
+   with variants of the MMA loop that each change or drop one part of a
+   k-step's work (a runtime test per step, the code decode, the spike
+   expansion, the mma.sync; timing only), in three interleaved rounds;
+   and per member the phases of block (0, 0) (globaltimer) and warp 0's
+   clocks in its MMA loops and its LIF + store epilogues.
 
 Prints the card's name and power limit first.  Needs a card and nvcc.
 """
@@ -24,6 +33,7 @@ import ctypes
 import itertools
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -70,8 +80,9 @@ def _build(name, src):
     OUT.mkdir(parents=True, exist_ok=True)
     cu, so = OUT / f"{name}.cu", OUT / f"lib{name}.so"
     cu.write_text(src)
-    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so),
-                    str(cu)], check=True, capture_output=True)
+    subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I",
+                    str(build.CSRC), "-o", str(so), str(cu)], check=True,
+                   capture_output=True)
     return ctypes.CDLL(str(so))
 
 
@@ -195,6 +206,240 @@ def stamps(dev):
               f"; last block done {rel[:, 6].max():.0f} ns", flush=True)
 
 
+def _group_case(dev, hw, c_in, spec, seed):
+    """A chain of chip_smoke.py's group phase at w4: planes (T=4, B=8,
+    20% density), members with random codes and thresholds."""
+    import torch
+
+    from repro_torch.core import packing
+    from repro_torch.quant.formats import PrecisionConfig
+    from repro_torch.quant.ptq import quantize_conv
+
+    gen = torch.Generator().manual_seed(seed)
+    s = torch.rand((4, 8, hw, hw, c_in), generator=gen) < 0.2
+    planes = packing.pack_bool(s).to(dev)
+    members, c = [], c_in
+    for item in spec:
+        if item == "P":
+            members.append(("pool", 2))
+            continue
+        wf = torch.randn((3, 3, c, item), generator=gen) * 0.1
+        qct = quantize_conv(wf.to(dev), PrecisionConfig(bits=4))
+        members.append(("conv", qct, torch.randint(
+            1, 60, (item,), generator=gen).to(torch.int32).to(dev)))
+        c = item
+    return planes, members
+
+
+def snn(dev):
+    """The vgg9 chain's time and the SM clock before and after 3 s of
+    launches; each served chain timed under forced launch plans (the
+    wrapper's plan, 16- and 8-block clusters, no K split, no staging)
+    beside the card's active clusters of 8-16 blocks; the vgg9 and
+    blocks.7 chains timed with variants of the MMA loop that change or
+    drop one part of a k-step's work each (timing only: most give wrong
+    results), in three interleaved rounds; then fused_group per member
+    (globaltimer stamps of block (0, 0): the block barrier that opens a
+    member, codes staged, the cluster barrier, the member's work done by
+    every warp of the block; clock64 of warp 0 inside its units: the MMA
+    loop with the K split's team sums, and the LIF + store epilogue)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.fused_group import ops
+
+    chains = {"vgg9": (32, 64, [64, "P", 128, 128, "P", 256, "P"]),
+              "blocks.0": (32, 64, [64, 64]),
+              "blocks.5": (8, 256, [256, 256]),
+              "blocks.7": (4, 512, [512, 512])}
+    kw = dict(leak_shift=3, v_reset_q=-2, soft_reset=True)
+    lib = ops._lib()
+    plan = ops._launch_plan
+    # the card's SM clock before and after 3 s of back-to-back launches,
+    # with the vgg9 chain's time at each
+    planes, members = _group_case(dev, *chains["vgg9"], 4)
+
+    def run():
+        ops.fused_group_rollout(planes, members, **kw)
+
+    for when in ("cold", "after 3 s of launches"):
+        if when != "cold":
+            t_end = time.perf_counter() + 3.0
+            while time.perf_counter() < t_end:
+                for _ in range(50):
+                    run()
+                torch.cuda.synchronize()
+        us = 1e3 * _device_ms(run, "fused_group_kernel")
+        clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True).stdout.strip()
+        print(f"fused_group vgg9 {when}: {us:.1f} us, SM clock {clk}",
+              flush=True)
+    for name, (hw, c_in, spec) in chains.items():
+        planes, members = _group_case(dev, hw, c_in, spec, len(name))
+        geoms = ops._chain_geoms(members, hw, hw)
+        cl, tc, stage, ksplit, smem = plan(geoms, 4, 8)
+        act = {c: lib.fused_group_max_clusters(4, c, smem)
+               for c in ops._CLUSTERS}
+        forced = {"plan": (cl, tc, stage, ksplit, smem)}
+        for c in (16, 8):
+            tcc, st, kx = ops._plan(geoms, 4, c)
+            forced[f"cl={c}"] = (c, tcc, st, kx, ops._group_smem_bytes(
+                geoms, tcc, c, st, kx))
+        none = (False,) * len(geoms)
+        forced["no K split"] = (cl, tc, stage, False, ops._group_smem_bytes(
+            geoms, tc, cl, stage, False))
+        forced["no staging"] = (cl, 4, none, ksplit, ops._group_smem_bytes(
+            geoms, 4, cl, none, ksplit))
+        times = []
+        for label, fp in forced.items():
+            ops._launch_plan = lambda *a, fp=fp: fp
+            try:
+                us = 1e3 * _device_ms(lambda: ops.fused_group_rollout(
+                    planes, members, **kw), "fused_group_kernel",
+                    per_call=1)
+            finally:
+                ops._launch_plan = plan
+            times.append(f"{label} {us:.1f} us")
+        print(f"fused_group {name}: active clusters {act}, plan cl={cl}; " +
+              ", ".join(times), flush=True)
+
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    base = (csrc / "fused_group.cu").read_text()
+    # variants of the MMA loop (mma_ksteps), timed only (all but the
+    # first give wrong results): where a k-step's time goes
+    step = "      const int32_t* s = sw + i * buf_words;\n"
+    decode = ("      bf[j][0] = int8mma::codes_s8<BITS>(rows[j] + kb, 0, "
+              "tq);\n      bf[j][1] = int8mma::codes_s8<BITS>(rows[j] + kb, "
+              "1, tq);\n")
+    mma = ("        int8mma::mma_s8(acc[i][j], a0, a1, a2, a3, bf[j][0], "
+           "bf[j][1]);\n")
+    expand = ("      const unsigned a0 = int8mma::spikes_s8(lo, tq);\n"
+              "      const unsigned a1 = int8mma::spikes_s8(hi, tq);\n"
+              "      const unsigned a2 = int8mma::spikes_s8(lo, tq + 4);\n"
+              "      const unsigned a3 = int8mma::spikes_s8(hi, tq + 4);\n")
+    dispatch = base[base.index("      if (ns == 4) {\n"):
+                    base.index("      if (ks > 1) {\n")]
+    variants = {
+        # the 4-step loop alone, without the dispatch on the step count
+        # (right only where the chunk is a multiple of 4 steps)
+        "the 4-step loop alone (T=4 only)": [(dispatch, (
+            "      mma_ksteps<BITS, 4>(acc, rows, st, buf_words, k0, k1, m, "
+            "ps, off_lo, off_hi, tq);\n"))],
+        # a uniform test per step that the compiler cannot drop, as the
+        # first design's `tg + i < nt`
+        "a runtime test per step": [(step, (
+            "      if (i >= (k1 >= 0 ? NS : 0)) break;\n" + step))],
+        "raw code words as B (no decode)": [(decode, (
+            "      bf[j][0] = rows[j][kb];\n"
+            "      bf[j][1] = rows[j][kb + (BITS > 1)];\n"))],
+        "raw spike words as A (no expansion)": [(expand, (
+            "      const unsigned a0 = lo, a1 = hi, a2 = lo >> 16, "
+            "a3 = hi >> 16;\n"))],
+        "adds in place of mma.sync": [(mma, (
+            "        acc[i][j][0] += a0 ^ bf[j][0];\n"
+            "        acc[i][j][1] += a1 ^ bf[j][1];\n"
+            "        acc[i][j][2] += a2;\n"
+            "        acc[i][j][3] += a3;\n"))],
+    }
+    real_lib = ops._lib
+    libs = {"as built": lib}
+    for i, (label, pairs) in enumerate(variants.items()):
+        # one file name per variant: dlopen hands back a library already
+        # loaded from the same path
+        vlib = _build(f"group_variant{i}", _patch(base, pairs))
+        for fn in ("fused_group_launch", "fused_group_smem_bytes",
+                   "fused_group_max_clusters", "fused_group_error_string"):
+            getattr(vlib, fn).argtypes = getattr(lib, fn).argtypes
+            getattr(vlib, fn).restype = getattr(lib, fn).restype
+        libs[label] = vlib
+    cases = {name: _group_case(dev, *chains[name], len(name))
+             for name in ("vgg9", "blocks.7")}
+    # three rounds, the variants in turn within each, so a drift of the
+    # card's clocks over the call spreads over all of them
+    times = {label: {name: [] for name in cases} for label in libs}
+    try:
+        for _ in range(3):
+            for label, vlib in libs.items():
+                ops._lib = lambda vlib=vlib: vlib
+                for name, (planes, members) in cases.items():
+                    times[label][name].append(1e3 * _device_ms(
+                        lambda: ops.fused_group_rollout(planes, members,
+                                                        **kw),
+                        "fused_group_kernel"))
+    finally:
+        ops._lib = real_lib
+    for label, per in times.items():
+        print(f"fused_group MMA loop variant, {label}: " + ", ".join(
+            f"{name} " + " / ".join(f"{us:.1f}" for us in v) + " us"
+            for name, v in per.items()), flush=True)
+
+    src = base
+    hdr = ("namespace {\n__device__ unsigned long long g_t[16][4];\n"
+           "__device__ long long g_c[16][2];\n__device__ long long "
+           "g_acc[2];\n__device__ __forceinline__ unsigned long long gt() "
+           "{ unsigned long long t; asm volatile(\"mov.u64 %0, "
+           "%globaltimer;\" : \"=l\"(t)); return t; }\n#define ONE "
+           "(threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0)\n"
+           "#define GST(i) if (ONE && c == 0) g_t[mi][i] = gt();\n")
+    src = _patch(src, [
+        ("namespace {\n", hdr),
+        ("    for (int tg = 0; tg < nt; tg += kTr) {\n",
+         "    long long c0 = 0, c1 = 0;\n"
+         "    for (int tg = 0; tg < nt; tg += kTr) {\n"),
+        ("      // this warp's k-steps [k0, k1)",
+         "      c0 = clock64();\n      // this warp's k-steps [k0, k1)"),
+        ("      // the LIF scan over the steps, in registers; pack, store\n",
+         "      c1 = clock64();\n"
+         "      if (ONE) g_acc[0] += c1 - c0;\n"),
+        ("    // membranes: to the scratch for the next chunk",
+         "    if (ONE) g_acc[1] += clock64() - c1;\n"
+         "    // membranes: to the scratch for the next chunk"),
+        ("      __syncthreads();   // this block is done with the previous "
+         "member\n", "      __syncthreads();\n      GST(0)\n"),
+        ("      int8mma::cp_async_wait_all();\n",
+         "      int8mma::cp_async_wait_all();\n      __syncthreads();\n"
+         "      GST(1)\n"),
+        ("      if (m.conv && m.w_stride) {\n",
+         "      GST(2)\n      if (m.conv && m.w_stride) {\n"),
+        ("      cur ^= 1;\n", "      __syncthreads();\n      GST(3)\n"
+         "      if (ONE && c == 0) { g_c[mi][0] = g_acc[0]; g_c[mi][1] = "
+         "g_acc[1]; g_acc[0] = g_acc[1] = 0; }\n      cur ^= 1;\n"),
+        ("}  // namespace\n", "}  // namespace\nextern \"C\" int "
+         "probe_read(void* d, void* c) { int e = (int)cudaMemcpyFromSymbol("
+         "d, g_t, sizeof(g_t)); return e ? e : (int)cudaMemcpyFromSymbol("
+         "c, g_c, sizeof(g_c)); }\n")])
+    stamped = _build("group_stamps", src)
+    for fn in ("fused_group_launch", "fused_group_smem_bytes",
+               "fused_group_max_clusters", "fused_group_error_string"):
+        getattr(stamped, fn).argtypes = getattr(lib, fn).argtypes
+        getattr(stamped, fn).restype = getattr(lib, fn).restype
+    stamped.probe_read.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    ops._lib = lambda: stamped
+    try:
+        for name in ("vgg9", "blocks.7"):
+            hw, c_in, spec = chains[name]
+            planes, members = _group_case(dev, hw, c_in, spec, len(name))
+            for _ in range(3):
+                ops.fused_group_rollout(planes, members, **kw)
+            torch.cuda.synchronize()
+            t = np.zeros((16, 4), np.uint64)
+            c = np.zeros((16, 2), np.int64)
+            stamped.probe_read(t.ctypes.data, c.ctypes.data)
+            t = t[:len(spec)].astype(np.int64)
+            t0 = t[0, 0]
+            for mi, item in enumerate(spec):
+                kind = "pool" if item == "P" else f"conv {item}"
+                print(f"fused_group {name} member {mi} ({kind}): open "
+                      f"{t[mi, 0] - t0} ns, staged +{t[mi, 1] - t[mi, 0]}, "
+                      f"cluster barrier +{t[mi, 2] - t[mi, 1]}, work "
+                      f"+{t[mi, 3] - t[mi, 2]}; warp 0 clocks: MMA loops and "
+                      f"team sums {c[mi, 0]}, LIF + stores {c[mi, 1]}",
+                      flush=True)
+    finally:
+        ops._lib = real_lib
+
+
 def main():
     import torch
 
@@ -207,8 +452,12 @@ def main():
                          text=True, check=True).stdout.strip()
     print(f"card: {smi}", flush=True)
     dev = torch.device("cuda", 0)
+    if sys.argv[1:] == ["snn"]:
+        snn(dev)
+        return 0
     linears(dev)
     stamps(dev)
+    snn(dev)
     return 0
 
 
