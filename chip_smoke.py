@@ -19,7 +19,11 @@
    ``fused_group`` phase also times the per-layer ``fused_conv`` + pool
    chain that fusion replaces, on the same input (``chain_ms`` in the
    record), and prints each chain's launch plan (cluster size, T chunk,
-   staged codes, K split); the ``fused_nce`` phase prints its grid.
+   staged codes, K split); the ``fused_nce`` phase prints its grid; the
+   ``fused_conv`` phase prints each geometry's launch plan (blocks, warps
+   per unit, staged or L2 codes) and asserts, with one torch.profiler
+   pass over one wrapper call, that the call runs exactly one CUDA
+   kernel (no pad or copy).
 3. End to end, three paths, each ``graph_init`` (seed 0) -> ``deploy`` ->
    ``save`` -> ``load`` at full width, INT4, then
    ``SNNServeEngine(max_batch=8)`` serves 16 requests with every launch
@@ -37,7 +41,8 @@
    W2), 20% input density, both resets: each kernel bit-exact against its
    plain version, ``rollout_unfused`` equal bit for bit to ``rollout``
    (``fused_nce``) and to the plain rollout, and T launches of each
-   kernel per unfused rollout.
+   kernel per unfused rollout; ``spike_matmul``'s (rb, split) printed and
+   one CUDA kernel a call asserted, as for ``fused_conv``.
 5. olmo-1b at full width (16 layers, d 2048, d_ff 8192, vocab 50304,
    bf16), random weights from seed 0, every linear packed to W4 (one
    scale per output row) with the port's ``quantize``:
@@ -146,6 +151,35 @@ def _device_ms(fn, match="", reps=10, per_call=None):
     return _median_ms(fn)
 
 
+def _one_kernel(fn, kernel, calls=10):
+    """Assert that a call of ``fn`` runs exactly one CUDA kernel (and no
+    copy or fill), named ``kernel``: torch.profiler over ``calls`` calls
+    (after a warm-up call) must show that kernel alone, at most once a
+    call (the launch counters show it runs once a call).  The profiler
+    now and then drops events, so a profile that caught none is taken
+    again (5 tries)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [(e.key, e.count) for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+    if (len(events) != 1 or kernel not in events[0][0]
+            or not 1 <= events[0][1] <= calls):
+        raise AssertionError(f"{calls} {kernel} calls ran {events} on the "
+                             f"device; expected that kernel alone, once a "
+                             f"call")
+
+
 def _bound_ms(nbytes, ops, ops_per_s=H100_INT8_OPS_PER_S):
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
@@ -202,10 +236,22 @@ def conv_phase(dev, gen, geometries, main_names):
                     raise AssertionError(f"fused_conv {name} w{bits}: "
                                          f"vacuous output rate {rate}")
                 checks += 1
+                run = lambda: ops.fused_conv_rollout(planes, qct, **kw)
+                if bits == 4 and soft:
+                    _one_kernel(run, "fused_conv_kernel")
+                    ho, wo = pv.shape[1], pv.shape[2]
+                    ks_, bpg, staged, smem = ops._launch_plan(
+                        b, ho * wo, -(-c_out // 32),
+                        k * k * planes.shape[-1], qct.data.shape[1])
+                    print(f"  fused_conv {name:<14} launch: "
+                          f"{-(-c_out // 32) * bpg} blocks, {8 // ks_} "
+                          f"units of {ks_} warps a block, codes "
+                          f"{'staged' if staged else 'read from L2'}, "
+                          f"{smem} B of shared memory a block; one kernel "
+                          f"a call", flush=True)
                 if name not in main_names or bits != 4 or not soft:
                     continue
                 # timing and bound at the main path's configuration
-                run = lambda: ops.fused_conv_rollout(planes, qct, **kw)
                 ms = _device_ms(run, "fused_conv_kernel")
                 call_ms = _median_ms(run)
                 plain_ms = _device_ms(
@@ -237,7 +283,8 @@ def conv_phase(dev, gen, geometries, main_names):
                       f"{lib_ms:.4f} ms | bound {bound:.4f} ms "
                       f"(bytes {t_b:.4f}, adds {t_o:.4f}; {nbytes} B, "
                       f"{adds:.3e} adds) | out rate {rate:.3f}", flush=True)
-    print(f"fused_conv: {checks} checks bit-exact", flush=True)
+    print(f"fused_conv: {checks} checks bit-exact, each geometry's call "
+          f"one kernel", flush=True)
     return rows, max_err
 
 
@@ -537,6 +584,12 @@ def nce_step_phase(dev, gen):
         t_steps, b, d_in, d_out = geoms[name][:4]
         qt = eng.weights
         run = lambda: sm_ops.spike_matmul(sp[0], qt, d_in=d_in)
+        _one_kernel(run, "spike_matmul_kernel")
+        rb, split = sm_ops._launch_plan(b, sp.shape[-1], qt.bits,
+                                        -(-d_out // 32) * 32)
+        print(f"  spike_matmul {name:<5} launch: {-(-d_out // 32)} groups x "
+              f"{-(-b // rb)} row chunks of {rb} x a {split}-block "
+              f"cluster; one kernel a call", flush=True)
         ms = _device_ms(run, "spike_matmul_kernel")
         plain_ms = _device_ms(lambda: spike_matmul_ref(sp[0], qt, d_in=d_in),
                               reps=3)

@@ -53,7 +53,8 @@
 //   * the m16n8 accumulator maps a lane to channels 2q, 2q+1 of pixels g
 //     and g+8, so a lane ORs its fire bits (n_out mask before the reset)
 //     into two partial words and two shuffles across the quad complete
-//     each pixel's 32-channel word; the quad's lanes store it into the
+//     each pixel's 32-channel word (int8_mma.cuh `lif_words`, shared with
+//     fused_conv.cu); the quad's lanes store it into the
 //     next plane of every block of the cluster (distributed shared memory)
 //     or, after the last member, to device memory;
 //   * a pool member is computed by every block on its own copy (a bitwise
@@ -334,30 +335,9 @@ __device__ __forceinline__ void conv_member(
 #pragma unroll
       for (int i = 0; i < kTr; ++i) {
         if (tg + i >= nt) break;   // uniform across the warp
-        unsigned w_lo = 0, w_hi = 0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = e & 1;
-            int v = mem[j][e];
-            v = v - (v >> leak_shift) + acc[i][j][e];   // floor shift
-            const bool fire = live[j][c] && v >= th[j][c];
-            if (fire) v = soft_reset ? v - th[j][c] : v_reset;
-            mem[j][e] = v;
-            const unsigned bit = static_cast<unsigned>(fire)
-                                 << (j * 8 + tq * 2 + c);
-            if (e < 2) {
-              w_lo |= bit;
-            } else {
-              w_hi |= bit;
-            }
-          }
-        }
-        w_lo |= __shfl_xor_sync(0xFFFFFFFFu, w_lo, 1);
-        w_lo |= __shfl_xor_sync(0xFFFFFFFFu, w_lo, 2);
-        w_hi |= __shfl_xor_sync(0xFFFFFFFFu, w_hi, 1);
-        w_hi |= __shfl_xor_sync(0xFFFFFFFFu, w_hi, 2);
+        unsigned w_lo, w_hi;
+        int8mma::lif_words(mem, acc[i], th, live, tq, leak_shift, v_reset,
+                           soft_reset, w_lo, w_hi);
         const int t_loc = tg + i;
         if (last) {
           const size_t base = (static_cast<size_t>(t0 + t_loc) * B + b) *
@@ -614,15 +594,13 @@ size_t stage_words(const Member& m, int cl, int w_stride) {
   return static_cast<size_t>(owned) * 32 * w_stride;
 }
 
-int staged_stride(int wpr) { return wpr + ((4 - wpr) & 31); }
-
 // the largest staged code slab of the members in `stage_mask` (words)
 size_t slab_words(const Chain& chain, int cl, int stage_mask) {
   size_t w = 0;
   for (int i = 0; i < chain.n; ++i) {
     const Member& m = chain.m[i];
     if (m.conv && (stage_mask >> i & 1)) {
-      const size_t s = stage_words(m, cl, staged_stride(m.wpr));
+      const size_t s = stage_words(m, cl, int8mma::staged_stride(m.wpr));
       if (s > w) w = s;
     }
   }
@@ -778,7 +756,7 @@ extern "C" int fused_group_launch(const void* planes, const void* const* w,
     m.wq = static_cast<const int32_t*>(w[i]);
     m.theta = static_cast<const int32_t*>(theta[i]);
     m.vscr = static_cast<int32_t*>(vscr[i]);
-    m.w_stride = (stage_mask >> i & 1) ? staged_stride(m.wpr) : 0;
+    m.w_stride = (stage_mask >> i & 1) ? int8mma::staged_stride(m.wpr) : 0;
     m.vec = (vec_mask >> i & 1) && m.wpr % 4 == 0;
   }
   chain.red_offset =

@@ -65,6 +65,54 @@ __device__ __forceinline__ unsigned codes_s8(const uint32_t* wk, int half,
   return (e + kAdd) ^ 0x80808080u;
 }
 
+// Staged words per neuron or channel row in shared memory: `words`
+// padded to 4 mod 32, so the 8 rows of a B fragment load (lanes g = 0..7,
+// one row each, at most four consecutive words) sit in distinct banks.
+__host__ __device__ inline int staged_stride(int words) {
+  return words + ((4 - words) & 31);
+}
+
+// One shift-add LIF step on a lane's positions of a 16-row x 32-channel
+// accumulator tile (four m16n8 tiles j: channels 8j + 2q + (e & 1) of row
+// g for e < 2, of row g + 8 for e >= 2), the n_out mask (`live`) before
+// the reset.  Returns in w_lo / w_hi the rows' 32-channel spike words
+// (LSB = channel 0, pack_bool's layout): each lane ORs its fire bits in,
+// and two xor-shuffles complete the words over the quad, so every lane of
+// quad g holds the words of rows g and g + 8.
+__device__ __forceinline__ void lif_words(int (&mem)[4][4],
+                                          const int (&cur)[4][4],
+                                          const int (&th)[4][2],
+                                          const bool (&live)[4][2], int tq,
+                                          int leak_shift, int v_reset,
+                                          int soft_reset, unsigned& w_lo,
+                                          unsigned& w_hi) {
+  w_lo = 0;
+  w_hi = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = e & 1;
+      int v = mem[j][e];
+      v = v - (v >> leak_shift) + cur[j][e];   // arithmetic shift: floor
+      const bool fire = live[j][c] && v >= th[j][c];
+      if (fire) v = soft_reset ? v - th[j][c] : v_reset;
+      mem[j][e] = v;
+      const unsigned bit = static_cast<unsigned>(fire)
+                           << (j * 8 + tq * 2 + c);
+      if (e < 2) {
+        w_lo |= bit;
+      } else {
+        w_hi |= bit;
+      }
+    }
+  }
+  w_lo |= __shfl_xor_sync(0xFFFFFFFFu, w_lo, 1);
+  w_lo |= __shfl_xor_sync(0xFFFFFFFFu, w_lo, 2);
+  w_hi |= __shfl_xor_sync(0xFFFFFFFFu, w_hi, 1);
+  w_hi |= __shfl_xor_sync(0xFFFFFFFFu, w_hi, 2);
+}
+
 // 4-byte asynchronous copy global -> shared (cp.async.ca), and the wait
 // for every copy this thread issued
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {

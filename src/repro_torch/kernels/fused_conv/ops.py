@@ -4,12 +4,14 @@
 * a CUDA tensor launches the hand-written kernel ``csrc/fused_conv.cu``,
   or raises.  There is no fallback from one to the other.
 
-Around the kernel, this wrapper zero-pads the packed spike planes to the
-gather footprint (explicit SAME/VALID pads from ``ref.conv_pads``, the
-amounts the plain version pads by), pads ``c_out`` to a multiple of 32
-(zero weight rows, masked by ``n_out`` inside the kernel), and reshapes
-the outputs back.  Zero spike words and zero codes are inert in the
-accumulate, so the padding never changes a visible bit.
+The kernel reads the caller's tensors as they are: the packed spike
+planes (the SAME/VALID zero halo, from ``ref.conv_pads``, is read as zero
+inside the kernel), the ``(c_out, wpr)`` code words of the
+``QuantizedConvTensor`` and the ``(c_out,)`` thresholds (channels past
+``c_out`` up to the next multiple of 32 read as zero and are masked
+inside the kernel).  The wrapper plans the launch (:func:`_conv_plan`:
+warps per unit and whether the codes are staged in shared memory),
+allocates the two outputs and launches one kernel.
 
 ``fused_conv_rollout.launches`` counts kernel launches (and nothing else).
 """
@@ -21,31 +23,80 @@ import functools
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core import packing
 from repro_torch.core.lif import as_theta_vector
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.fused_conv import ref as _ref
-from repro_torch.kernels.smem import SMEM_LIMIT
+from repro_torch.kernels.smem import N_SMS, SMEM_LIMIT, staged_stride
 from repro_torch.quant.formats import QuantizedConvTensor
 
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
+_WARPS = 8                   # warps per block (kWarps)
+_TILE_WORDS = 4 * 16 * 32    # one team's K-split tile (kTileWords)
+_TEAMS = (8, 4, 2, 1)        # warps per unit the kernel takes
+_WAVE = N_SMS * _WARPS       # one block of 8 warps on every SM
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_conv")
     lib.fused_conv_launch.argtypes = ([ctypes.c_void_p] * 5 +
-                                      [ctypes.c_int] * 16 + [ctypes.c_void_p])
+                                      [ctypes.c_int] * 20 + [ctypes.c_void_p])
     lib.fused_conv_launch.restype = ctypes.c_int
     lib.fused_conv_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.fused_conv_smem_bytes.restype = ctypes.c_size_t
     lib.fused_conv_error_string.argtypes = [ctypes.c_int]
     lib.fused_conv_error_string.restype = ctypes.c_char_p
     return lib
+
+
+# --- the launch plan (csrc/fused_conv.cu must agree) ------------------------
+
+
+def _conv_smem_bytes(wpr: int, ks: int, staged: bool) -> int:
+    """Dynamic shared memory of one block (``smem_words`` in the kernel):
+    the staged codes of one 32-channel group, then the K-split tiles of
+    the block's ``8 // ks`` teams when ``ks > 1``."""
+    words = (32 * staged_stride(wpr) if staged else 0) + \
+        ((_WARPS // ks) * _TILE_WORDS if ks > 1 else 0)
+    return 4 * words
+
+
+def _conv_plan(b: int, npix: int, groups: int, nk: int,
+               wpr: int) -> Tuple[int, int, bool]:
+    """(ks, blocks_per_group, staged) for ``b`` batch elements, ``npix``
+    output pixels, ``groups`` 32-channel groups, ``nk`` k-steps (taps x
+    spike words) and ``wpr`` code words a channel.  A unit is 16 pixels x
+    32 channels of one batch element; ``ks`` warps share its k-steps: the
+    largest team (at most ``nk`` warps) that keeps the launch within one
+    wave of warps, or 1 when the units alone fill more.  A block runs
+    ``8 // ks`` units of one group and stages the group's codes when they
+    fit in ``SMEM_LIMIT`` beside the K-split tiles, else reads them from
+    L2."""
+    group_units = -(-npix // 16) * b
+    ks = next((k for k in _TEAMS
+               if k <= nk and group_units * groups * k <= _WAVE), 1)
+    blocks_per_group = -(-group_units // (_WARPS // ks))
+    staged = _conv_smem_bytes(wpr, ks, True) <= SMEM_LIMIT
+    return ks, blocks_per_group, staged
+
+
+@functools.cache
+def _launch_plan(b: int, npix: int, groups: int, nk: int,
+                 wpr: int) -> Tuple[int, int, bool, int]:
+    """:func:`_conv_plan` with its shared memory, cached per geometry and
+    held against the kernel's own size function and ``SMEM_LIMIT``."""
+    ks, bpg, staged = _conv_plan(b, npix, groups, nk, wpr)
+    smem = _conv_smem_bytes(wpr, ks, staged)
+    kernel = _lib().fused_conv_smem_bytes(wpr, ks, int(staged))
+    if kernel != smem or smem > SMEM_LIMIT:
+        raise ValueError(f"fused_conv: the kernel holds {kernel} bytes of "
+                         f"shared memory at ks={ks}, staged={staged}, the "
+                         f"wrapper planned {smem} (limit {SMEM_LIMIT})")
+    if groups * bpg > 0x7FFFFFFF:
+        raise ValueError(f"fused_conv: grid too large ({groups * bpg} "
+                         f"blocks) for batch {b}, {npix} output pixels")
+    return ks, bpg, staged, smem
 
 
 def fused_conv_rollout(
@@ -96,48 +147,32 @@ def fused_conv_rollout(
                                             padding)
     ho = _ref.conv_out_size(h, qct.kh, stride, plh, phh)
     wo = _ref.conv_out_size(w, qct.kw, stride, plw, phw)
-    n_pad = _round_up(qct.c_out, 32)
-    if t_steps == 0:   # an empty rollout launches nothing
-        return (torch.zeros((b, ho, wo, qct.c_out), dtype=torch.int32,
-                            device=dev),
-                torch.zeros((0, b, ho, wo, n_pad // 32), dtype=torch.int32,
-                            device=dev))
-    if b > 65535 or -(-ho * wo // 32) > 65535:
-        raise ValueError(f"fused_conv: grid too large for batch {b}, "
-                         f"{ho}x{wo} output")
-    lib = _lib()
-    smem = lib.fused_conv_smem_bytes(qct.kh, qct.kw, win)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"fused_conv: a {qct.kh}x{qct.kw}x{qct.c_in_pad} weight tile "
-            f"needs {smem} bytes of shared memory > {SMEM_LIMIT}")
-
-    # pre-pad the planes: the gather footprint may run one short of the
-    # padded extent at the high edge (stride > 1), so extend to it
-    hp = max(h + plh + phh, (ho - 1) * stride + qct.kh)
-    wp = max(w + plw + phw, (wo - 1) * stride + qct.kw)
-    sp = F.pad(spikes_packed_t.to(torch.int32),
-               (0, 0, plw, wp - w - plw, plh, hp - h - plh)).contiguous()
-    wpk = F.pad(qct.data.to(torch.int32),
-                (0, 0, 0, n_pad - qct.c_out)).contiguous()
-    thp = F.pad(theta, (0, n_pad - qct.c_out)).contiguous()
-    v = torch.empty((b, ho * wo, n_pad), dtype=torch.int32, device=dev)
-    out = torch.empty((t_steps, b, ho * wo, n_pad // 32), dtype=torch.int32,
+    groups = -(-qct.c_out // 32)
+    v = torch.empty((b, ho, wo, qct.c_out), dtype=torch.int32, device=dev)
+    out = torch.empty((t_steps, b, ho, wo, groups), dtype=torch.int32,
                       device=dev)
+    if t_steps == 0 or v.numel() == 0:   # nothing to compute: no launch
+        return v.zero_(), out
+    wpr = qct.data.shape[1]
+    ks, bpg, staged, _ = _launch_plan(b, ho * wo, groups,
+                                      qct.kh * qct.kw * win, wpr)
+    sp = spikes_packed_t.to(torch.int32).contiguous()
+    wq = qct.data.to(torch.int32).contiguous()
+    theta = theta.contiguous()
+    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_conv_launch(
-            sp.data_ptr(), wpk.data_ptr(), thp.data_ptr(), v.data_ptr(),
-            out.data_ptr(), t_steps, b, hp, wp, win, ho, wo, qct.kh, qct.kw,
-            stride, qct.bits, n_pad, qct.c_out, leak_shift, int(v_reset_q),
-            int(bool(soft_reset)), stream)
+            sp.data_ptr(), wq.data_ptr(), theta.data_ptr(), v.data_ptr(),
+            out.data_ptr(), t_steps, b, h, w, win, ho, wo, qct.kh, qct.kw,
+            stride, plh, plw, qct.bits, qct.c_out, ks, bpg, int(staged),
+            leak_shift, int(v_reset_q), int(bool(soft_reset)), stream)
     if err != 0:
         raise RuntimeError(
             f"fused_conv kernel launch failed: CUDA error {err} "
             f"({lib.fused_conv_error_string(err).decode()})")
     fused_conv_rollout.launches += 1
-    v = v.reshape(b, ho, wo, n_pad)[..., :qct.c_out]
-    return v, out.reshape(t_steps, b, ho, wo, n_pad // 32)
+    return v, out
 
 
 fused_conv_rollout.launches = 0

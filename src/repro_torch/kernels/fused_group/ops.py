@@ -82,16 +82,10 @@ def _conv_wpr(g: Tuple) -> int:
     return k * k * cin_pad * bits // 32
 
 
-def _staged_stride(wpr: int) -> int:
-    """Staged words per channel: ``wpr`` padded to 4 mod 32, so the 8
-    channels of a B fragment load sit in distinct banks."""
-    return wpr + ((4 - wpr) & 31)
-
-
 def _stage_words(g: Tuple, cl: int) -> int:
     """Staged code words of a conv member per block: the most 32-channel
     groups one block of a ``cl``-block cluster owns."""
-    return -(-(g[6] // 32) // cl) * 32 * _staged_stride(_conv_wpr(g))
+    return -(-(g[6] // 32) // cl) * 32 * _smem.staged_stride(_conv_wpr(g))
 
 
 def _group_smem_bytes(geoms: Sequence[Tuple], tc: int, cl: int,

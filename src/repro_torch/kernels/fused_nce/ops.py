@@ -27,7 +27,7 @@ from repro_torch.core import packing
 from repro_torch.core.lif import as_theta_vector
 from repro_torch.kernels import build as _build
 from repro_torch.kernels.fused_nce import ref as _ref
-from repro_torch.kernels.smem import N_SMS, SMEM_LIMIT
+from repro_torch.kernels.smem import N_SMS, SMEM_LIMIT, staged_stride
 from repro_torch.quant.formats import QuantizedTensor
 
 _SPLITS = (16, 8, 4, 2, 1)   # blocks per cluster the kernel takes
@@ -42,8 +42,8 @@ def _nce_smem_bytes(t_steps: int, rb: int, kwords: int, split: int,
     rows_pad = -(-t_steps * rb // 16) * 16
     ks = -(-kwords // split)
     sp_stride = ks | 1
-    w_stride = ks * bits + ((4 - ks * bits) & 31)
-    return 4 * (rows_pad * sp_stride + 32 * w_stride + 2 * rows_pad * 32)
+    return 4 * (rows_pad * sp_stride + 32 * staged_stride(ks * bits) +
+                2 * rows_pad * 32)
 
 
 def _nce_plan(t_steps: int, m: int, kwords: int, bits: int,

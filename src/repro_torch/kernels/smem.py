@@ -32,6 +32,13 @@ SMEM_LIMIT = 232448
 N_SMS = 132
 
 
+def staged_stride(words: int) -> int:
+    """Staged words per row of packed codes in the kernels' shared memory
+    (``int8_mma.cuh`` ``staged_stride``): ``words`` padded to 4 mod 32, so
+    the 8 rows of a tensor-core B fragment load sit in distinct banks."""
+    return words + ((4 - words) & 31)
+
+
 def stored_plane_words(m: Dict) -> int:
     """Words of one member's input plane as the kernel stores it: the
     plane plus its consumer's zero halo, ``ceil(c/32)`` words a pixel."""

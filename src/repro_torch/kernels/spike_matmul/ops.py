@@ -4,11 +4,14 @@
 * a CUDA tensor launches the hand-written kernel ``csrc/spike_matmul.cu``,
   or raises.  There is no fallback from one to the other.
 
-Around the kernel, this wrapper flattens the leading dims to rows and,
-when ``d_in`` is not a multiple of 32, pads each weight row to
-``bits * ceil(d_in/32)`` words (zero words), so every spike word meets
-whole weight words.  The kernel masks the spike bits past ``d_in``, so
-stray bits there are inert, as in the plain version.
+The kernel is ``fused_nce``'s K-split cluster product at T=1 (their
+shared ``csrc/nce_product.cuh``), launched by ``fused_nce``'s plan
+``_nce_plan(1, m, kwords, bits, n_pad)``: rows per block and the
+cluster's contraction split.  It reads the packed weights as ``quantize``
+leaves them, ``(n, ceil(d_in*bits/32))`` words (words past a row's end
+stage as zero), and masks the spike bits past ``d_in``, so both stay
+inert as in the plain version.  The wrapper flattens the leading dims to
+rows, allocates the output and launches one kernel.
 
 ``spike_matmul.launches`` counts kernel launches (and nothing else).
 """
@@ -17,12 +20,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core import packing
 from repro_torch.kernels import build as _build
+from repro_torch.kernels.fused_nce.ops import _nce_plan, _nce_smem_bytes
 from repro_torch.kernels.spike_matmul import ref as _ref
 from repro_torch.quant.formats import QuantizedTensor
 
@@ -31,12 +35,31 @@ from repro_torch.quant.formats import QuantizedTensor
 def _lib() -> ctypes.CDLL:
     lib = _build.load("spike_matmul")
     lib.spike_matmul_launch.argtypes = ([ctypes.c_void_p] * 3 +
-                                        [ctypes.c_int] * 5 +
+                                        [ctypes.c_int] * 8 +
                                         [ctypes.c_void_p])
     lib.spike_matmul_launch.restype = ctypes.c_int
+    lib.spike_matmul_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.spike_matmul_smem_bytes.restype = ctypes.c_size_t
     lib.spike_matmul_error_string.argtypes = [ctypes.c_int]
     lib.spike_matmul_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _launch_plan(m: int, kwords: int, bits: int,
+                 n_pad: int) -> Tuple[int, int]:
+    """(rb, split) from ``_nce_plan`` at T=1, cached per shape, held
+    against the grid's limit and the kernel's own shared-memory size."""
+    rb, split = _nce_plan(1, m, kwords, bits, n_pad)
+    if -(-m // rb) > 65535 or n_pad // 32 > 65535:
+        raise ValueError(f"spike_matmul: grid too large for {m} rows, "
+                         f"{n_pad} outputs")
+    smem = _lib().spike_matmul_smem_bytes(rb, kwords, split, bits)
+    planned = _nce_smem_bytes(1, rb, kwords, split, bits)
+    if smem != planned:
+        raise ValueError(f"spike_matmul: the kernel holds {smem} bytes of "
+                         f"shared memory, the wrapper planned {planned}")
+    return rb, split
 
 
 def spike_matmul(
@@ -76,19 +99,14 @@ def spike_matmul(
     out = torch.empty((m, n), dtype=torch.int32, device=dev)
     if m == 0 or n == 0:
         return out.reshape(*lead, n)
-    if -(-m // 8) > 65535:
-        raise ValueError(f"spike_matmul: grid too large for {m} rows")
-    # whole weight words per spike word: bits words per 32 inputs
-    wpr_pad = qt.bits * kwords
-    w = F.pad(qt.data.to(torch.int32), (0, wpr_pad - wpr)).contiguous()
-    if w.data_ptr() % 16:          # the kernel loads weights 8-16 B at once
-        w = w.clone()
+    rb, split = _launch_plan(m, kwords, qt.bits, -(-n // 32) * 32)
+    w = qt.data.to(torch.int32).contiguous()
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.spike_matmul_launch(
-            s2.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, kwords, d_in,
-            qt.bits, stream)
+            s2.data_ptr(), w.data_ptr(), out.data_ptr(), m, kwords, d_in,
+            wpr, qt.bits, n, rb, split, stream)
     if err != 0:
         raise RuntimeError(
             f"spike_matmul kernel launch failed: CUDA error {err} "

@@ -24,8 +24,13 @@ the CUDA tests' tolerances:
   kernel's task assignment over the cluster, membranes carried per task
   and across chunks) and ``fused_nce``'s K split over a cluster with the
   T-scan epilogue, both bit-exact with the plain versions;
+* ``fused_conv``'s unit walk (the block/team/unit assignment, the K
+  split over a team, T in chunks of up to 4 steps, the in-kernel halo at
+  SAME/VALID and stride 1/2, staged or L2 codes), through the m16n8k32
+  lane maps and the quad-shuffle words, and ``spike_matmul`` as
+  ``fused_nce``'s product at T=1 over every split, bit-exact;
 * the wrappers' launch plans (cluster size, T chunk, weight staging,
-  contraction split) within ``SMEM_LIMIT``.
+  contraction split, conv teams) within ``SMEM_LIMIT``.
 """
 
 import numpy as np
@@ -35,6 +40,9 @@ import torch
 from repro_torch.core import packing
 from repro_torch.core.lif import lif_step_int
 from repro_torch.kernels import smem
+from repro_torch.kernels.fused_conv import ops as conv_ops
+from repro_torch.kernels.fused_conv.ref import (
+    conv_out_shape, conv_pads, fused_conv_rollout_torch)
 from repro_torch.kernels.fused_group import ops as group_ops
 from repro_torch.kernels.fused_group.ref import (
     fused_group_rollout_torch, maxpool_packed)
@@ -44,6 +52,7 @@ from repro_torch.kernels.kv_attention import ops as kv_ops
 from repro_torch.kernels.kv_attention import ref as kv_ref
 from repro_torch.kernels.packed_qmatmul import ops as qmm_ops
 from repro_torch.kernels.packed_qmatmul import ref as qmm_ref
+from repro_torch.kernels.spike_matmul.ref import spike_matmul_ref
 from repro_torch.quant.formats import PrecisionConfig
 from repro_torch.quant.ptq import quantize, quantize_conv
 
@@ -636,13 +645,13 @@ def test_member_major_walk_matches_plain(spec, hw, c_in, tc, cl):
 # --- fused_nce: the K split and the T-scan epilogue -------------------------
 
 
-def _nce_emulated(spikes, qt, d_in, theta, *, rb, split, leak_shift,
-                  v_reset_q, soft_reset):
-    """The fused_nce kernel's arithmetic for one (rb, split) launch: per
-    (group, row chunk) cluster, block s takes spike words [s*ks, s*ks+ks),
-    its warps the two halves of them; bits past d_in masked, code words
-    past the row's end zero; partial sums per local row t*rb + r; then
-    the epilogue sums the 2*split partials and scans T."""
+def _nce_partials(spikes, qt, d_in, *, rb, split):
+    """The product stage the fused_nce and spike_matmul kernels share
+    (``csrc/nce_product.cuh``) for one (rb, split) launch: per (group, row
+    chunk) cluster, block s takes spike words [s*ks, s*ks+ks), its warps
+    the two halves of them; bits past d_in masked, code words past the
+    row's end zero.  Returns {r0: partials (split, 2, T*rb, n_pad)}, local
+    row t*rb + r."""
     t_steps, m, kwords = spikes.shape
     n = qt.shape[0]
     n_pad = -(-n // 32) * 32
@@ -659,10 +668,7 @@ def _nce_emulated(spikes, qt, d_in, theta, *, rb, split, leak_shift,
                               bits, ks * split * 32).astype(np.int64)
     ones = packing.unpack_np(sp.astype(np.uint32).astype(np.int32), 1,
                              kwords * 32).astype(np.int64)
-    v_out = np.zeros((m, n_pad), np.int64)
-    s_out = np.zeros((t_steps, m, n_pad), bool)
-    th = np.zeros(n_pad, np.int64)
-    th[:n] = theta
+    out = {}
     for r0 in range(0, m, rb):
         rows = [(t, r) for t in range(t_steps) for r in range(rb)]
         part = np.zeros((split, 2, len(rows), n_pad), np.int64)
@@ -675,6 +681,24 @@ def _nce_emulated(spikes, qt, d_in, theta, *, rb, split, leak_shift,
                     if r0 + r < m:
                         part[s, hf, j] = ones[t, r0 + r, k0:k1] @ \
                             codes[:, k0:k1].T
+        out[r0] = part
+    return out
+
+
+def _nce_emulated(spikes, qt, d_in, theta, *, rb, split, leak_shift,
+                  v_reset_q, soft_reset):
+    """The fused_nce kernel's arithmetic for one (rb, split) launch: the
+    shared product (:func:`_nce_partials`), then the epilogue sums the
+    2*split partials of each row and scans T."""
+    t_steps, m, _ = spikes.shape
+    n = qt.shape[0]
+    n_pad = -(-n // 32) * 32
+    v_out = np.zeros((m, n_pad), np.int64)
+    s_out = np.zeros((t_steps, m, n_pad), bool)
+    th = np.zeros(n_pad, np.int64)
+    th[:n] = theta
+    for r0, part in _nce_partials(spikes, qt, d_in, rb=rb,
+                                  split=split).items():
         for r in range(rb):
             if r0 + r >= m:
                 break
@@ -714,6 +738,255 @@ def test_nce_k_split_and_t_scan_match_plain(m, d_in, d_out, split):
         v, out = _nce_emulated(spikes, qt, d_in, theta, rb=rows,
                                split=split, **kw)
         assert torch.equal(v, pv) and torch.equal(out, ps)
+    assert ps.any()
+
+
+# --- spike_matmul: fused_nce's product at T=1 ------------------------------
+
+
+def _spike_matmul_emulated(spikes, qt, d_in, *, rb, split):
+    """The spike_matmul kernel: the shared product at T=1, then one warp a
+    row sums the row's 2*split partials and stores int32 currents."""
+    m = spikes.shape[0]
+    n = qt.shape[0]
+    out = np.zeros((m, n), np.int64)
+    for r0, part in _nce_partials(spikes[None], qt, d_in, rb=rb,
+                                  split=split).items():
+        for r in range(min(rb, m - r0)):
+            out[r0 + r] = part[:, :, r].sum(axis=(0, 1))[:n]
+    return torch.from_numpy(out.astype(np.int32))
+
+
+@pytest.mark.parametrize("m,d_in,d_out,bits", [
+    (1, 4096, 512, 4), (8, 4096, 512, 4), (13, 1000, 100, 8),
+    (64, 2048, 200, 2)])
+@pytest.mark.parametrize("split", nce_ops._SPLITS)
+def test_spike_matmul_k_split_matches_plain(m, d_in, d_out, bits, split):
+    """Every split the cluster can take, at the plan's rows per block and
+    at one row a block, with stray bits past d_in set."""
+    g = np.random.default_rng(m * 31 + d_in + split)
+    s = g.random((m, d_in)) < 0.2
+    spikes = torch.from_numpy(packing.pack_np(s.astype(np.int32), 1))
+    if d_in % 32:                        # stray bits past d_in are inert
+        spikes[..., -1] |= np.int32(-(1 << (d_in % 32)))
+    wf = torch.from_numpy((g.standard_normal((d_out, d_in)) * 0.05)
+                          .astype(np.float32))
+    qt = quantize(wf, PrecisionConfig(bits=bits))
+    want = spike_matmul_ref(spikes, qt, d_in=d_in)
+    rb, _ = nce_ops._nce_plan(1, m, spikes.shape[-1], bits,
+                              -(-d_out // 32) * 32)
+    assert rb == min(m, 64)
+    for rows in sorted({rb, 1}):
+        got = _spike_matmul_emulated(spikes, qt, d_in, rb=rows, split=split)
+        assert torch.equal(got, want)
+    assert want.abs().sum() > 0
+
+
+@pytest.mark.parametrize("m,d_in,d_out,bits,want", [
+    (8, 4096, 512, 4, (8, 8)),       # vgg9 fc1: 16 groups x 8 blocks
+    (64, 2048, 2048, 8, (64, 2)),    # kernel_bench's NCE step: 64 x 2
+    (1, 4096, 512, 4, (1, 8)),
+    (200, 1000, 100, 8, (64, 8)),    # 4 row chunks x 4 groups x 8
+    (13, 75, 45, 2, (13, 2)),        # 3 spike words: no split past them
+])
+def test_spike_matmul_plan(m, d_in, d_out, bits, want):
+    kwords = -(-d_in // 32)
+    n_pad = -(-d_out // 32) * 32
+    rb, split = nce_ops._nce_plan(1, m, kwords, bits, n_pad)
+    assert (rb, split) == want
+    assert (n_pad // 32) * -(-m // rb) * split <= max(
+        smem.N_SMS, (n_pad // 32) * -(-m // rb))
+    assert nce_ops._nce_smem_bytes(1, rb, kwords, split,
+                                   bits) <= smem.SMEM_LIMIT
+
+
+# --- fused_conv: the unit walk ----------------------------------------------
+
+
+def _conv_walk(planes, qct, theta, *, stride, padding, leak_shift,
+               v_reset_q, soft_reset, ks, staged):
+    """The fused_conv kernel's walk: blocks of one 32-channel group, each
+    running 8 // ks units (16 output pixels x 32 channels of one batch
+    element) with a team of ks warps splitting each unit's k-steps
+    [r*nk/ks, (r+1)*nk/ks); per chunk of up to 4 steps a k-step's B
+    fragments decoded once (staged rows: channels past c_out zero; L2
+    rows: clamped to c_out - 1), every step's A fragments loaded at
+    (oy*stride + di - pad_top, ox*stride + dj - pad_left), zero outside
+    the plane; the team's partials summed, LIF on the lane map, the
+    quad's words stored by lanes q = 0 (pixel g) and q = 1 (pixel g+8)."""
+    t_steps, b, h, w, wc = planes.shape
+    (pt, _), (pleft, _) = conv_pads(h, w, qct.kh, qct.kw, stride, padding)
+    ho, wo = conv_out_shape(h, w, qct, stride, padding)
+    npix = ho * wo
+    tiles = -(-npix // 16)
+    n_out, bits = qct.c_out, qct.bits
+    groups = -(-n_out // 32)
+    nk = qct.kh * qct.kw * wc
+    teams = 8 // ks
+    bpg = -(-(tiles * b) // teams)
+    x = planes.numpy().astype(np.int64) & _M32
+    wq = qct.data.numpy().astype(np.int64) & _M32
+    th = theta.numpy().astype(np.int64)
+    v_out = np.zeros((b, npix, n_out), np.int64)
+    s_out = np.zeros((t_steps, b, npix, groups), np.int64)
+
+    def code_row(gr, c):
+        ch = gr * 32 + c
+        if staged:
+            return wq[ch] if ch < n_out else np.zeros(wq.shape[1], np.int64)
+        return wq[min(ch, n_out - 1)]
+
+    frags = {}
+
+    def b_frags(gr, kk):            # [j] -> per-lane (b0, b1)
+        if (gr, kk) not in frags:
+            frags[gr, kk] = [[(_codes_s8(row, 0, lane & 3, bits),
+                               _codes_s8(row, 1, lane & 3, bits))
+                              for lane in range(32)
+                              for row in [code_row(gr, j * 8 + (lane >> 2))[
+                                  kk * bits:(kk + 1) * bits]]]
+                             for j in range(4)]
+        return frags[gr, kk]
+
+    def word(bb, t, p, tap, q):
+        di, dj = divmod(tap, qct.kw)
+        y = (p // wo) * stride - pt + di
+        xx = (p % wo) * stride - pleft + dj
+        if 0 <= y < h and 0 <= xx < w:
+            return int(x[t, bb, y, xx, q])
+        return 0
+
+    seen = []
+    for blk in range(groups * bpg):
+        gr, bi = divmod(blk, bpg)
+        for team in range(teams):
+            u = bi * teams + team
+            if u >= tiles * b:
+                continue
+            bb, tile = divmod(u, tiles)
+            seen.append((gr, bb, tile))
+            px = [(min(tile * 16 + (lane >> 2), npix - 1),
+                   min(tile * 16 + (lane >> 2) + 8, npix - 1))
+                  for lane in range(32)]
+            mem = np.zeros((32, 4, 4), np.int64)
+            for tg in range(0, t_steps, 4):
+                ns = min(4, t_steps - tg)
+                acc = np.zeros((32, ns, 4, 4), np.int64)
+                for trank in range(ks):
+                    for kk in range(trank * nk // ks,
+                                    (trank + 1) * nk // ks):
+                        tap, q = divmod(kk, wc)
+                        bf = b_frags(gr, kk)
+                        for i in range(ns):
+                            a = []
+                            for lane in range(32):
+                                lo = word(bb, tg + i, px[lane][0], tap, q)
+                                hi = word(bb, tg + i, px[lane][1], tap, q)
+                                nib = lane & 3
+                                a.append((_spikes_s8(lo, nib),
+                                          _spikes_s8(hi, nib),
+                                          _spikes_s8(lo, nib + 4),
+                                          _spikes_s8(hi, nib + 4)))
+                            for j in range(4):
+                                acc[:, i, j] += np.array(
+                                    _mma_m16n8k32(a, bf[j]), np.int64)
+                for i in range(ns):
+                    fire = [[[False] * 4 for _ in range(4)]
+                            for _ in range(32)]
+                    for lane in range(32):
+                        for j in range(4):
+                            for e in range(4):
+                                ch = gr * 32 + j * 8 + 2 * (lane & 3) + \
+                                    (e & 1)
+                                live = ch < n_out
+                                theta_c = th[ch] if live else 0
+                                v = int(mem[lane, j, e])
+                                v = v - (v >> leak_shift) + int(
+                                    acc[lane, i, j, e])
+                                f = live and v >= theta_c
+                                if f:
+                                    v = v - theta_c if soft_reset \
+                                        else v_reset_q
+                                mem[lane, j, e] = v
+                                fire[lane][j][e] = f
+                    lo, hi = _quad_words(fire, lambda lane: lane & 3)
+                    for lane in range(32):
+                        p_lo = tile * 16 + (lane >> 2)
+                        if lane & 3 == 0 and p_lo < npix:
+                            s_out[tg + i, bb, p_lo, gr] = lo[lane]
+                        if lane & 3 == 1 and p_lo + 8 < npix:
+                            s_out[tg + i, bb, p_lo + 8, gr] = hi[lane]
+            for lane in range(32):
+                for j in range(4):
+                    for e in range(4):
+                        p = tile * 16 + (lane >> 2) + 8 * (e >> 1)
+                        ch = gr * 32 + j * 8 + 2 * (lane & 3) + (e & 1)
+                        if ch < n_out and p < npix:
+                            v_out[bb, p, ch] = mem[lane, j, e]
+    assert sorted(seen) == [(gr, bb, tl) for gr in range(groups)
+                            for bb in range(b) for tl in range(tiles)]
+    s_out = (s_out & _M32).astype(np.uint32).astype(np.int32)
+    return (torch.from_numpy(v_out.astype(np.int32)).reshape(
+                b, ho, wo, n_out),
+            torch.from_numpy(s_out).reshape(t_steps, b, ho, wo, groups))
+
+
+# (h, w, c_in, c_out, k, stride, padding, bits, b)
+_WALK_GEOMS = {
+    "ragged s1": (9, 7, 40, 36, 3, 1, "SAME", 4, 1),
+    "s2 asym": (8, 6, 40, 36, 3, 2, "SAME", 8, 2),   # SAME pads (0, 1)
+    "1x1 s2": (9, 9, 33, 70, 1, 2, "SAME", 2, 1),
+    "valid": (7, 6, 20, 40, 3, 1, "VALID", 4, 1),
+}
+
+
+def _walk_case(name, t_steps, seed):
+    h, w, c_in, c_out, k, stride, padding, bits, b = _WALK_GEOMS[name]
+    g = np.random.default_rng(seed)
+    s = g.random((t_steps, b, h, w, c_in)) < 0.3
+    planes = torch.from_numpy(packing.pack_np(s.astype(np.int32), 1))
+    wf = torch.from_numpy((g.standard_normal((k, k, c_in, c_out)) * 0.2)
+                          .astype(np.float32))
+    qct = quantize_conv(wf, PrecisionConfig(bits=bits))
+    qmax = (1 << (bits - 1)) - 1
+    theta = torch.from_numpy(
+        g.integers(1, 3 * k * qmax + 2, c_out).astype(np.int32))
+    return planes, qct, theta, dict(stride=stride, padding=padding)
+
+
+@pytest.mark.parametrize("name", sorted(_WALK_GEOMS))
+@pytest.mark.parametrize("t_steps", [1, 3, 5])
+def test_conv_unit_walk_matches_plain(name, t_steps):
+    """The walk under the wrapper's own plan: T chunks of 4 with a tail,
+    the in-kernel halo at SAME (asymmetric at stride 2) and VALID, 1x1
+    and 3x3 taps, ragged c_in / c_out."""
+    planes, qct, theta, geo = _walk_case(name, t_steps, t_steps * 7)
+    kw = dict(leak_shift=3, v_reset_q=-2, soft_reset=t_steps != 3)
+    pv, ps = fused_conv_rollout_torch(planes, qct, threshold_q=theta,
+                                      **geo, **kw)
+    ho, wo = pv.shape[1:3]
+    wc = planes.shape[-1]
+    ks, _, staged = conv_ops._conv_plan(
+        planes.shape[1], ho * wo, -(-qct.c_out // 32),
+        qct.kh * qct.kw * wc, qct.data.shape[1])
+    v, out = _conv_walk(planes, qct, theta, ks=ks, staged=staged, **geo,
+                        **kw)
+    assert torch.equal(out, ps) and torch.equal(v, pv)
+    assert ps.any()
+
+
+@pytest.mark.parametrize("ks", [1, 2, 4, 8])
+@pytest.mark.parametrize("staged", [True, False])
+def test_conv_teams_and_l2_codes_match_plain(ks, staged):
+    """Every team size the kernel takes, with codes staged (zero rows past
+    c_out) or read from L2 (rows clamped to c_out - 1, masked)."""
+    planes, qct, theta, geo = _walk_case("s2 asym", 5, ks + 10 * staged)
+    kw = dict(leak_shift=2, v_reset_q=1, soft_reset=staged)
+    pv, ps = fused_conv_rollout_torch(planes, qct, threshold_q=theta,
+                                      **geo, **kw)
+    v, out = _conv_walk(planes, qct, theta, ks=ks, staged=staged, **geo,
+                        **kw)
+    assert torch.equal(out, ps) and torch.equal(v, pv)
     assert ps.any()
 
 
@@ -819,3 +1092,65 @@ def test_k_split_teams_fill_the_block_and_cover_every_k_step(units, ks):
         spans = [range(r * nk // ks, (r + 1) * nk // ks) for r in range(ks)]
         assert sorted(k for sp in spans for k in sp) == list(range(nk))
     assert group_ops._RED_WORDS == 4 * 4 * 16 * 32
+
+
+# chip_smoke.py's conv geometries: (h, w, c_in, c_out, k, stride)
+_SMOKE_CONVS = {
+    "convs.1": (32, 32, 64, 64, 3, 1),
+    "convs.2": (16, 16, 64, 128, 3, 1),
+    "convs.3": (16, 16, 128, 128, 3, 1),
+    "convs.4": (8, 8, 128, 256, 3, 1),
+    "blocks.2.conv1": (32, 32, 64, 128, 3, 2),
+    "blocks.2.proj": (32, 32, 64, 128, 1, 2),
+    "blocks.4.conv1": (16, 16, 128, 256, 3, 2),
+    "blocks.4.conv2": (8, 8, 256, 256, 3, 1),
+    "blocks.4.proj": (16, 16, 128, 256, 1, 2),
+    "blocks.6.conv1": (8, 8, 256, 512, 3, 2),
+    "blocks.6.conv2": (4, 4, 512, 512, 3, 1),
+    "blocks.6.proj": (8, 8, 256, 512, 1, 2),
+    "s2_3x3": (16, 16, 64, 128, 3, 2),
+    "s2_1x1": (16, 16, 64, 128, 1, 2),
+    "ragged": (9, 7, 40, 36, 3, 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_SMOKE_CONVS))
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_conv_plan_fills_the_card_within_smem(name, bits):
+    """At B=8: the block fits in SMEM_LIMIT (codes staged at every served
+    geometry), the teams cover every k-step once, and the launch puts no
+    more than one wave of warps beyond the units."""
+    h, w, c_in, c_out, k, stride = _SMOKE_CONVS[name]
+    b = 8
+    ho, wo = -(-h // stride), -(-w // stride)
+    npix, groups = ho * wo, -(-c_out // 32)
+    nk = k * k * -(-c_in // 32)
+    wpr = nk * bits
+    ks, bpg, staged = conv_ops._conv_plan(b, npix, groups, nk, wpr)
+    assert ks in (1, 2, 4, 8) and 1 <= ks <= nk
+    assert staged
+    assert conv_ops._conv_smem_bytes(wpr, ks, staged) <= smem.SMEM_LIMIT
+    spans = [range(r * nk // ks, (r + 1) * nk // ks) for r in range(ks)]
+    assert sorted(kk for sp in spans for kk in sp) == list(range(nk))
+    units = -(-npix // 16) * b * groups
+    warps = groups * bpg * 8
+    assert bpg * (8 // ks) >= -(-npix // 16) * b     # every unit placed
+    assert warps - units <= smem.N_SMS * 8
+    if units <= smem.N_SMS * 8 // 8:
+        assert ks == min(8, nk)                       # narrow: teams of 8
+
+
+def test_conv_plan_reads_l2_codes_past_the_budget():
+    """A 3x3 x 1024 tile at w8 is 288 KB of packed codes a group: the plan
+    reads them from L2 instead of raising; the served resnet18 layers get
+    one wave of 128 blocks."""
+    nk = 9 * 32
+    ks, bpg, staged = conv_ops._conv_plan(8, 16, 2, nk, nk * 8)
+    assert not staged and ks == 8
+    assert conv_ops._conv_smem_bytes(nk * 8, ks, True) > smem.SMEM_LIMIT
+    assert conv_ops._conv_smem_bytes(nk * 8, ks, False) <= smem.SMEM_LIMIT
+    for npix, groups, nk, want in ((1024, 2, 18, (1, 64)),
+                                   (16, 16, 144, (8, 8)),
+                                   (64, 8, 36, (4, 16))):
+        ks, bpg, staged = conv_ops._conv_plan(8, npix, groups, nk, nk * 4)
+        assert (ks, bpg) == want and staged and groups * bpg == 128

@@ -134,6 +134,96 @@ def test_fused_nce_every_batch_bits_and_reset(cuda, m, d_in, d_out, bits,
     assert ps.any()
 
 
+def _conv_case(cuda, h, w, c_in, c_out, k, stride, bits, b, t_steps, seed,
+               padding="SAME", soft=True):
+    """fused_conv against its plain version: one launch, bit-exact.
+    Returns the wrapper's launch plan."""
+    planes = _spikes((t_steps, b, h, w, c_in), seed).to(cuda)
+    wf = torch.from_numpy((np.random.default_rng(seed).standard_normal(
+        (k, k, c_in, c_out)) * 0.2).astype(np.float32))
+    qct = quantize_conv(wf, PrecisionConfig(bits=bits)).to(cuda)
+    # thresholds up to twice the spread of a step's current at 20% density
+    codes = packing.unpack(qct.data, bits, qct.k_flat).float()
+    hi = max(2, int(2 * float(codes.std()) * (0.2 * k * k * c_in) ** 0.5))
+    theta = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        1, hi, size=(c_out,)).astype(np.int32))
+    kw = dict(stride=stride, padding=padding, leak_shift=3, v_reset_q=-3,
+              soft_reset=soft, threshold_q=theta.to(cuda))
+    pv, ps = fused_conv_rollout_torch(planes, qct, **kw)
+    before = conv_ops.fused_conv_rollout.launches
+    kv, ks = conv_ops.fused_conv_rollout(planes, qct, **kw)
+    torch.cuda.synchronize()
+    assert conv_ops.fused_conv_rollout.launches == before + 1
+    assert kv.shape == pv.shape and ks.shape == ps.shape
+    assert torch.equal(kv, pv) and torch.equal(ks, ps)
+    assert ps.any() and not torch.equal(ps, torch.full_like(ps, -1))
+    ho, wo = pv.shape[1:3]
+    return conv_ops._conv_plan(b, ho * wo, -(-c_out // 32),
+                               k * k * planes.shape[-1], qct.data.shape[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("h,w,c_in,c_out,k,stride", [
+    (4, 4, 512, 512, 3, 1),      # resnet18 blocks.6.conv2
+    (8, 8, 256, 512, 3, 2),      # blocks.6.conv1
+    (32, 32, 64, 128, 1, 2),     # blocks.2.proj
+    (16, 16, 128, 256, 1, 2),    # blocks.4.proj
+    (8, 8, 256, 512, 1, 2),      # blocks.6.proj
+])
+def test_fused_conv_resnet18_geometries(cuda, h, w, c_in, c_out, k, stride,
+                                        bits):
+    _conv_case(cuda, h, w, c_in, c_out, k, stride, bits, 8, 4,
+               seed=h * 100 + c_out + bits, soft=bits != 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("soft", [True, False])
+def test_fused_conv_tile_above_smem_reads_l2(cuda, soft):
+    """3x3 x 1024 -> 64 at w8: 288 KB of packed codes for one 32-channel
+    group, beyond SMEM_LIMIT: the codes are read from L2."""
+    ks, _, staged = _conv_case(cuda, 6, 6, 1024, 64, 3, 1, 8, 2, 3,
+                               seed=1024, soft=soft)
+    assert not staged
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("t_steps", [1, 3, 4, 12])
+def test_fused_conv_batches_and_steps(cuda, b, t_steps):
+    """T in chunks of up to 4 steps with every tail, at the batch sizes a
+    served bucket takes (vgg9 convs.3, and a stride-2 ragged layer)."""
+    _conv_case(cuda, 16, 16, 128, 128, 3, 1, 4, b, t_steps,
+               seed=b * 10 + t_steps)
+    _conv_case(cuda, 9, 7, 40, 36, 3, 2, 8, b, t_steps,
+               seed=b * 10 + t_steps + 1, soft=False)
+
+
+# every launch-plan variant, each by the wrapper's own choice:
+# (h, w, c_in, c_out, k, bits, b) -> (ks, staged)
+_CONV_PLANS = {
+    (32, 32, 64, 64, 3, 4, 8): (1, True),      # vgg9 convs.1
+    (16, 16, 128, 128, 3, 4, 8): (2, True),    # vgg9 convs.3
+    (8, 8, 128, 256, 3, 4, 8): (4, True),      # vgg9 convs.4
+    (4, 4, 512, 512, 3, 4, 8): (8, True),      # resnet18 blocks.6.conv2
+    (16, 16, 1024, 256, 3, 8, 5): (1, False),  # 640 units
+    (16, 16, 1024, 256, 3, 8, 3): (2, False),  # 384 units
+    (8, 8, 1024, 256, 3, 8, 5): (4, False),    # 160 units
+    (4, 4, 1024, 64, 3, 8, 8): (8, False),     # 16 units
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", list(_CONV_PLANS),
+                         ids=[f"ks{v[0]}-{'staged' if v[1] else 'l2'}"
+                              for v in _CONV_PLANS.values()])
+def test_fused_conv_every_launch_plan(cuda, geom):
+    h, w, c_in, c_out, k, bits, b = geom
+    ks, _, staged = _conv_case(cuda, h, w, c_in, c_out, k, 1, bits, b, 4,
+                               seed=sum(geom))
+    assert (ks, staged) == _CONV_PLANS[geom]
+
+
 @pytest.mark.cuda
 def test_empty_rollout_launches_nothing(cuda):
     qct = quantize_conv(torch.randn(3, 3, 32, 32),
@@ -260,6 +350,40 @@ def test_spike_matmul_kernel_matches_plain(cuda, m, d_in, d_out, bits):
     assert sm_ops.spike_matmul.launches == before + 1
     assert got.dtype == torch.int32 and torch.equal(got, ref)
     assert ref.abs().sum() > 0
+
+
+# (m, d_in, d_out, bits) -> the (rb, split) `_nce_plan(1, ...)` picks
+_SM_PLANS = {
+    (8, 4096, 256, 4): (8, 16),
+    (8, 4096, 512, 4): (8, 8),        # vgg9 fc1
+    (8, 4096, 1024, 2): (8, 4),
+    (64, 2048, 2048, 8): (64, 2),     # kernel_bench's NCE step
+    (8, 4096, 4096, 4): (8, 1),
+    (1, 4096, 512, 4): (1, 8),
+    (200, 1000, 100, 8): (64, 8),
+    (200, 75, 45, 2): (64, 2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", list(_SM_PLANS))
+def test_spike_matmul_every_split(cuda, geom):
+    """Every contraction split the plan takes, m = 1 and 200, ragged d_in
+    and d_out, stray bits past d_in set: one launch, bit-exact."""
+    m, d_in, d_out, bits = geom
+    spikes = _spikes((m, d_in), sum(geom)).to(cuda)
+    spikes[..., -1] |= -1 << (d_in % 32) if d_in % 32 else 0  # stray bits
+    wf = torch.from_numpy((np.random.default_rng(d_out).standard_normal(
+        (d_out, d_in)) * 0.2).astype(np.float32))
+    qt = quantize(wf, PrecisionConfig(bits=bits)).to(cuda)
+    ref = sm_ref.spike_matmul_ref(spikes, qt, d_in=d_in)
+    before = sm_ops.spike_matmul.launches
+    got = sm_ops.spike_matmul(spikes, qt, d_in=d_in)
+    torch.cuda.synchronize()
+    assert sm_ops.spike_matmul.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, ref)
+    assert sm_ops._launch_plan(m, spikes.shape[-1], bits,
+                               -(-d_out // 32) * 32) == _SM_PLANS[geom]
 
 
 @pytest.mark.cuda

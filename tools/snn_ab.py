@@ -3,7 +3,10 @@
 GPU: the ``fused_nce`` fc1 phase and the ``fused_group`` phase over the
 served chains (each kernel against its plain version at bits 2/4/8 and
 both resets, then timed at w4, soft reset, B=8, T=4: kernel ms and the
-per-layer ``fused_conv`` + pool chain's ms), then the three served SNN
+per-layer ``fused_conv`` + pool chain's ms), the ``fused_conv`` phase at
+the 12 geometries the served paths launch it at (kernel ms each), the
+NCE step phase (``spike_matmul`` and ``lif_step`` ms at vgg9's fc1 and
+kernel_bench's NCE geometry), then the three served SNN
 paths (vgg9 ``fusion=()``, vgg9 ``fusion="auto"``, resnet18
 ``fusion="auto"``, full width, INT4, ``SNNServeEngine(max_batch=8)``):
 images/s of each of 5 rounds of 64 requests (8 batches a round, wall
@@ -39,7 +42,8 @@ from repro_torch.kernels import build
 from repro_torch.models import snn_cnn
 
 t0 = time.perf_counter()
-build.build_all(("fused_conv", "fused_nce", "fused_group"))
+build.build_all(("fused_conv", "fused_nce", "fused_group",
+                 "spike_matmul", "lif_step"))
 print(f"build {time.perf_counter() - t0:.2f} s", flush=True)
 dev = torch.device("cuda", 0)
 gen = torch.Generator().manual_seed(0)
@@ -59,6 +63,29 @@ for name, r in rows.items():
 print(f"AB fused_group 5 chains kernel "
       f"{sum(r['ms'] for r in rows.values()):.4f} ms (blocks.0 once)",
       flush=True)
+convs = {
+    "convs.1": (32, 32, 64, 64, 3, 1),
+    "convs.2": (16, 16, 64, 128, 3, 1),
+    "convs.3": (16, 16, 128, 128, 3, 1),
+    "convs.4": (8, 8, 128, 256, 3, 1),
+    "blocks.2.conv1": (32, 32, 64, 128, 3, 2),
+    "blocks.2.proj": (32, 32, 64, 128, 1, 2),
+    "blocks.4.conv1": (16, 16, 128, 256, 3, 2),
+    "blocks.4.conv2": (8, 8, 256, 256, 3, 1),
+    "blocks.4.proj": (16, 16, 128, 256, 1, 2),
+    "blocks.6.conv1": (8, 8, 256, 512, 3, 2),
+    "blocks.6.conv2": (4, 4, 512, 512, 3, 1),
+    "blocks.6.proj": (8, 8, 256, 512, 1, 2),
+}
+rows, _ = chip_smoke.conv_phase(dev, gen, convs, set(convs))
+for name, r in rows.items():
+    print(f"AB fused_conv {name} kernel {r['ms']:.4f} ms", flush=True)
+print(f"AB fused_conv 12 geometries kernel "
+      f"{sum(r['ms'] for r in rows.values()):.4f} ms", flush=True)
+rows, _ = chip_smoke.nce_step_phase(dev, gen)
+for kernel, per in rows.items():
+    for name, r in per.items():
+        print(f"AB {kernel} {name} kernel {r['ms']:.4f} ms", flush=True)
 
 rng = np.random.default_rng(0)
 for model_name, fusion in (("vgg9", ()), ("vgg9", "auto"),
