@@ -36,13 +36,26 @@
    layer with the plain versions on the card (TF32 off for both), and
    every packed layer's input spike rate there must be > 0.
 4. The NCE step path (``NeuronComputeEngine.step`` = ``spike_matmul`` ->
-   ``lif_step`` -> pack) at vgg9's fc1 geometry (T=4, B=8, 4096->512,
-   W2/4/8) and kernel_bench's NCE geometry (T=8, B=64, 2048->2048, W8 and
-   W2), 20% input density, both resets: each kernel bit-exact against its
-   plain version, ``rollout_unfused`` equal bit for bit to ``rollout``
-   (``fused_nce``) and to the plain rollout, and T launches of each
-   kernel per unfused rollout; ``spike_matmul``'s (rb, split) printed and
-   one CUDA kernel a call asserted, as for ``fused_conv``.
+   ``lif_step``'s packed entry, which writes the spike words itself) at
+   vgg9's fc1 geometry (T=4, B=8, 4096->512, W2/4/8), kernel_bench's NCE
+   geometry (T=8, B=64, 2048->2048, W8/2/4) and a ragged one (T=4, B=8,
+   1000->100, W2/4/8), 20% input density, both resets: each kernel and
+   both ``lif_step`` entries bit-exact against their plain versions
+   (the packed entry against ``lif_step_ref`` + ``pack_bool``),
+   ``rollout_unfused`` equal bit for bit to ``rollout`` (``fused_nce``)
+   and to the plain rollout, one profiled ``step`` running exactly two
+   device kernels, and T launches of each kernel per unfused rollout;
+   ``spike_matmul``'s (rb, split) printed and one CUDA kernel a call
+   asserted, as for ``fused_conv``.  Times both ``lif_step`` entries,
+   the plain version and the bounds, and the step's device and wall time
+   beside the earlier step (int32 entry, then ``pack_bool``).
+   Then the async tier: vgg9 ``fusion=()`` at full width, INT4, through
+   ``AsyncSNNServeEngine`` (2 workers, bucket 8), 64 requests from 4
+   threads and 64 through loadgen's open loop (Poisson, 1000/s, seed 0):
+   every logit vector equal to the sync engine's, 4 ``fused_conv`` + 1
+   ``fused_nce`` a batch, no timeouts, registry and engine totals
+   reconciled, a Chrome trace that passes ``obs.validate``; images/s and
+   p50/p95/p99 printed with the card.
 5. olmo-1b at full width (16 layers, d 2048, d_ff 8192, vocab 50304,
    bf16), random weights from seed 0, every linear packed to W4 (one
    scale per output row) with the port's ``quantize``:
@@ -151,13 +164,13 @@ def _device_ms(fn, match="", reps=10, per_call=None):
     return _median_ms(fn)
 
 
-def _one_kernel(fn, kernel, calls=10):
-    """Assert that a call of ``fn`` runs exactly one CUDA kernel (and no
-    copy or fill), named ``kernel``: torch.profiler over ``calls`` calls
-    (after a warm-up call) must show that kernel alone, at most once a
-    call (the launch counters show it runs once a call).  The profiler
-    now and then drops events, so a profile that caught none is taken
-    again (5 tries)."""
+def _only_kernels(fn, kernels, calls=10):
+    """Assert that a call of ``fn`` runs exactly the CUDA kernels named in
+    ``kernels``, one each (and no copy or fill): torch.profiler over
+    ``calls`` calls (after a warm-up call) must show those kernels alone,
+    each at most once a call (the launch counters show they run once a
+    call).  The profiler now and then drops events, so a profile that
+    caught none is taken again (5 tries)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -173,11 +186,12 @@ def _one_kernel(fn, kernel, calls=10):
                   if e.device_type == DeviceType.CUDA]
         if events:
             break
-    if (len(events) != 1 or kernel not in events[0][0]
-            or not 1 <= events[0][1] <= calls):
-        raise AssertionError(f"{calls} {kernel} calls ran {events} on the "
-                             f"device; expected that kernel alone, once a "
-                             f"call")
+    names = sorted(kernels)
+    found = sorted(next((k for k in names if k in key), key)
+                   for key, _ in events)
+    if found != names or not all(1 <= c <= calls for _, c in events):
+        raise AssertionError(f"{calls} calls ran {events} on the device; "
+                             f"expected {names} alone, each once a call")
 
 
 def _bound_ms(nbytes, ops, ops_per_s=H100_INT8_OPS_PER_S):
@@ -238,7 +252,7 @@ def conv_phase(dev, gen, geometries, main_names):
                 checks += 1
                 run = lambda: ops.fused_conv_rollout(planes, qct, **kw)
                 if bits == 4 and soft:
-                    _one_kernel(run, "fused_conv_kernel")
+                    _only_kernels(run, ["fused_conv_kernel"])
                     ho, wo = pv.shape[1], pv.shape[2]
                     ks_, bpg, staged, smem = ops._launch_plan(
                         b, ho * wo, -(-c_out // 32),
@@ -496,11 +510,15 @@ def group_phase(dev, gen, chains, main_names):
 
 
 def nce_step_phase(dev, gen):
-    """The NCE step path: spike_matmul and lif_step against their plain
-    versions, the unfused rollout (T steps of both) against the fused one
-    and the plain one, all bit-exact; then the main-path run (one unfused
-    rollout per geometry at its main precision) with the launch counts,
-    and each kernel's time, bound and yardsticks at those shapes."""
+    """The NCE step path: spike_matmul and both lif_step entries against
+    their plain versions, the unfused rollout (T steps of spike_matmul
+    and the packed LIF entry) against the fused one and the plain one,
+    all bit-exact; one profiled ``NeuronComputeEngine.step`` runs exactly
+    those two kernels; then the main-path run (one unfused rollout per
+    geometry at its main precision) with the launch counts, and each
+    kernel's time, bound and yardsticks at those shapes, with the step's
+    device and wall time beside the earlier step (the int32 entry, then
+    ``pack_bool``)."""
     import torch
 
     from repro_torch.core import packing
@@ -512,9 +530,11 @@ def nce_step_phase(dev, gen):
     from repro_torch.kernels.spike_matmul.ref import spike_matmul_ref
     from repro_torch.quant.formats import PrecisionConfig
 
-    # name: (T, B, d_in, d_out, widths, the width timed and counted)
+    # name: (T, B, d_in, d_out, widths, the width timed and counted or
+    # None where no path runs the geometry)
     geoms = {"fc1": (4, 8, 4096, 512, (2, 4, 8), 4),
-             "bench": (8, 64, 2048, 2048, (8, 2), 8)}
+             "bench": (8, 64, 2048, 2048, (8, 2, 4), 8),
+             "ragged": (4, 8, 1000, 100, (2, 4, 8), None)}
     checks, main = 0, {}
     for name, (t_steps, b, d_in, d_out, widths, main_bits) in geoms.items():
         s = torch.rand((t_steps, b, d_in), generator=gen) < 0.2
@@ -539,6 +559,7 @@ def nce_step_phase(dev, gen):
                 kw = dict(leak_shift=3, threshold_q=theta, v_reset_q=-3,
                           soft_reset=soft)
                 lv, ls = lif_ops.lif_step(v, ik, **kw)
+                kv, kwords = lif_ops.lif_step_packed(v, ik, **kw)
                 pv, ps = lif_step_ref(v, ip, **kw)
                 uv, us = eng.rollout_unfused(sp)
                 fv, fs = eng.rollout(sp)
@@ -549,6 +570,9 @@ def nce_step_phase(dev, gen):
                 for what, a, c in (("spike_matmul", ik, ip),
                                    ("lif_step v", lv, pv),
                                    ("lif_step s", ls, ps),
+                                   ("lif_step_packed v", kv, pv),
+                                   ("lif_step_packed words", kwords,
+                                    packing.pack_bool(ps)),
                                    ("unfused v vs fused", uv, fv),
                                    ("unfused s vs fused", us, fs),
                                    ("unfused v vs plain", uv, qv),
@@ -563,7 +587,18 @@ def nce_step_phase(dev, gen):
                 if bits == main_bits and soft:
                     main[name] = (eng, s, sp, rate)
     print(f"NCE step path: {checks} configurations bit-exact (spike_matmul, "
-          f"lif_step, rollout_unfused == rollout == plain)", flush=True)
+          f"lif_step int32 and packed entries, rollout_unfused == rollout == "
+          f"plain) at fc1, bench and ragged (B=8, 1000->100)", flush=True)
+
+    # one step on the card is two kernels: the product and the packed LIF
+    for name, (eng, _, sp, _) in main.items():
+        v0 = torch.zeros((sp.shape[1], eng.d_out), dtype=torch.int32,
+                         device=dev)
+        _only_kernels(lambda: eng.step(v0, sp[0]),
+                      ["spike_matmul_kernel", "lif_step_packed_kernel"])
+    print("NCE step: one profiled NeuronComputeEngine.step runs exactly two "
+          "device kernels (spike_matmul_kernel, lif_step_packed_kernel) at "
+          "fc1 and bench", flush=True)
 
     # the main path: NeuronComputeEngine.step over T, counts read around it
     sm_ops.spike_matmul.launches = lif_ops.lif_step.launches = 0
@@ -584,7 +619,7 @@ def nce_step_phase(dev, gen):
         t_steps, b, d_in, d_out = geoms[name][:4]
         qt = eng.weights
         run = lambda: sm_ops.spike_matmul(sp[0], qt, d_in=d_in)
-        _one_kernel(run, "spike_matmul_kernel")
+        _only_kernels(run, ["spike_matmul_kernel"])
         rb, split = sm_ops._launch_plan(b, sp.shape[-1], qt.bits,
                                         -(-d_out // 32) * 32)
         print(f"  spike_matmul {name:<5} launch: {-(-d_out // 32)} groups x "
@@ -614,19 +649,56 @@ def nce_step_phase(dev, gen):
                           generator=gen).to(torch.int32).to(dev)
         i = run()
         kw = dict(leak_shift=3, threshold_q=theta)
-        run = lambda: lif_ops.lif_step(v, i, **kw)
-        ms = _device_ms(run, "lif_step_kernel")
-        plain_ms = _device_ms(lambda: lif_step_ref(v, i, **kw), reps=3)
-        nbytes = 16 * v.numel()      # read v and i, write v' and s
+        packed = lambda: lif_ops.lif_step_packed(v, i, **kw)
+        ms = _device_ms(packed, "lif_step_packed_kernel")
+        int32_ms = _device_ms(lambda: lif_ops.lif_step(v, i, **kw),
+                              "lif_step_kernel")
+        plain_ms = _device_ms(
+            lambda: packing.pack_bool(lif_step_ref(v, i, **kw)[1]), reps=3)
+        words = -(-d_out // 32)
+        # read v and i, write v' and the words
+        nbytes = 12 * v.numel() + 4 * b * words
         bound, t_b, t_o = _bound_ms(nbytes, 5 * v.numel(),
                                     H100_FP32_OPS_PER_S)
+        int32_bound = _bound_ms(16 * v.numel(), 5 * v.numel(),
+                                H100_FP32_OPS_PER_S)[0]
         rows["lif_step"][name] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
-            bytes_ms=t_b, ops_ms=t_o)
-        print(f"  lif_step {name:<5} ({b}, {d_out}): kernel {ms:.4f} ms "
-              f"(wrapper call {_median_ms(run):.4f} ms wall) | plain "
-              f"{plain_ms:.4f} ms | bound {bound:.6f} ms (bytes {t_b:.6f}, "
-              f"ops {t_o:.6f})", flush=True)
+            bytes_ms=t_b, ops_ms=t_o, int32_ms=int32_ms)
+        print(f"  lif_step {name:<5} ({b}, {d_out}): packed entry {ms:.4f} ms "
+              f"(wrapper call {_median_ms(packed):.4f} ms wall) | int32 "
+              f"entry {int32_ms:.4f} ms | plain (lif_step_ref + pack_bool) "
+              f"{plain_ms:.4f} ms | bound {bound:.6f} ms ({nbytes} B; int32 "
+              f"entry's {int32_bound:.6f})", flush=True)
+
+        # the step, now and as it was (int32 entry, then pack_bool)
+        v0 = torch.zeros((b, d_out), dtype=torch.int32, device=dev)
+        step = lambda: eng.step(v0, sp[0])
+
+        def step_before():
+            ii = sm_ops.spike_matmul(sp[0], qt, d_in=d_in)
+            vv, ss = lif_ops.lif_step(v0, ii, leak_shift=3,
+                                      threshold_q=theta)
+            return vv, packing.pack_bool(ss)
+
+        if not all(torch.equal(a, c) for a, c in zip(step(), step_before())):
+            raise AssertionError(f"NCE {name}: step differs from the int32 "
+                                 f"entry + pack_bool step")
+        for label, fn in (("step", step), ("earlier step", step_before)):
+            dev_ms = _device_ms(fn)
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / 50
+            rows["lif_step"][name][label.replace(" ", "_") + "_ms"] = dev_ms
+            rows["lif_step"][name][label.replace(" ", "_") + "_wall_ms"] = \
+                wall_ms
+            print(f"  NCE {label:<12} {name:<5}: device {dev_ms:.4f} ms, wall "
+                  f"{wall_ms:.4f} ms a step (50 steps, host clock)",
+                  flush=True)
     return rows, launches
 
 
@@ -1354,6 +1426,182 @@ def serve_phase(dev, model_name, fusion, per_batch, same_as=None):
     return launches, logits
 
 
+def _drive_async(aeng, images):
+    """64 requests submitted from 4 threads into a started tier, then
+    64 through loadgen's open loop (Poisson, 1000 requests/s, seed 0),
+    then ``close``.  Returns the (image index, result) pairs, the open
+    loop's report, the burst's seconds, the wall seconds and the final
+    stats."""
+    import threading
+
+    from repro_torch.serve_async import poisson_schedule, run_open_loop_async
+
+    t0 = time.perf_counter()
+    submitted = [None] * 64
+
+    def client(tid):
+        for i in range(tid * 16, tid * 16 + 16):
+            submitted[i] = aeng.submit(images[i])
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=60)
+    if any(th.is_alive() for th in threads) or None in submitted:
+        raise AssertionError("async phase: a submitting thread did not "
+                             "finish within 60 s")
+    results = [(i, f.result(timeout=60)) for i, f in enumerate(submitted)]
+    t_burst = time.perf_counter() - t0
+
+    class Recorder:
+        """loadgen's open loop submits images[i % 64]: keep each future
+        with its image's index."""
+
+        def __init__(self):
+            self.futures = []
+
+        def submit(self, image, deadline_ms=None):
+            fut = aeng.submit(image, deadline_ms=deadline_ms)
+            self.futures.append((len(self.futures) % 64, fut))
+            return fut
+
+    rec = Recorder()
+    report = run_open_loop_async(rec, images,
+                                 poisson_schedule(1000.0, 64, seed=0),
+                                 result_timeout_s=60.0)
+    results += [(i, f.result(timeout=60)) for i, f in rec.futures]
+    stats = aeng.close(timeout=60)
+    return results, report, t_burst, time.perf_counter() - t0, stats
+
+
+def async_serve_phase(dev, card):
+    """vgg9 ``fusion=()`` at full width, INT4, T=4 through
+    ``AsyncSNNServeEngine`` (2 workers, max_batch 8, buckets pinned to
+    (8,)): 64 requests submitted from 4 threads, then 64 through
+    loadgen's open loop at a Poisson rate of 1000 requests/s (seed 0).
+    Every request's logits must equal the synchronous engine's for the
+    same image (same pinned bucket), each batch must launch 4
+    ``fused_conv`` and 1 ``fused_nce`` (counts set to 0 just before the
+    tier starts, read after it closes), no request may time out, the
+    registry's counters must reconcile with the engine's totals, and the
+    exported Chrome trace must pass the port's ``obs.validate``.
+    The sync engine's images/s over its 64 are printed beside.  Returns
+    the launch counts."""
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.deploy import (
+        SNNEngineConfig, SNNRequest, SNNServeEngine, deploy, deploy_config,
+        load)
+    from repro_torch.kernels.fused_conv import ops as conv_ops
+    from repro_torch.kernels.fused_group import ops as group_ops
+    from repro_torch.kernels.fused_nce import ops as nce_ops
+    from repro_torch.models import snn_cnn
+    from repro_torch.obs import validate as obs_validate
+    from repro_torch.serve_async import (
+        AsyncEngineConfig, AsyncSNNServeEngine)
+
+    t_phase = time.perf_counter()
+    cfg = deploy_config("vgg9", 4, smoke=False)
+    model = deploy(snn_cnn.init(0, cfg, device=dev), cfg, device=dev)
+    pkg_dir = ROOT / "build" / "chip_smoke"
+    pkg_dir.mkdir(parents=True, exist_ok=True)
+    model = load(model.save(str(pkg_dir / "vgg9_w4_async_full.npz")),
+                 device=dev)
+    images = np.random.default_rng(1).random(
+        (64, cfg.img_size, cfg.img_size, cfg.in_channels)).astype(np.float32)
+    ecfg = dict(max_batch=8, buckets=(8,))
+
+    sync = SNNServeEngine(model, SNNEngineConfig(**ecfg), device=dev)
+    sync.warmup()
+    for uid, img in enumerate(images):
+        sync.add_request(SNNRequest(uid=uid, image=img))
+    t0 = time.perf_counter()
+    sync_stats = sync.run_until_done()
+    sync_wall = time.perf_counter() - t0
+    ref = np.stack([sync.pop_result(uid).logits for uid in range(64)])
+    sync.close()
+
+    reg = obs.MetricsRegistry()
+    eng = SNNServeEngine(model, SNNEngineConfig(**ecfg), device=dev,
+                         registry=reg)
+    aeng = AsyncSNNServeEngine(eng, AsyncEngineConfig(workers=2))
+    aeng.warmup()
+    counters = {"fused_conv": conv_ops.fused_conv_rollout,
+                "fused_nce": nce_ops.fused_nce_rollout,
+                "fused_group": group_ops.fused_group_rollout}
+    for fn in counters.values():
+        fn.launches = 0
+    aeng.start()
+    results, report, t_burst, wall, stats = _drive_async(aeng, images)
+    launches = {k: fn.launches for k, fn in counters.items()}
+
+    bad = [(i, r.status) for i, r in results if not r.ok]
+    if bad or report.timeouts or stats["async"]["timeouts"] or \
+            stats["async"]["errors"]:
+        raise AssertionError(f"async phase: requests not ok: {bad[:5]}, "
+                             f"timeouts {stats['async']['timeouts']}, "
+                             f"errors {stats['async']['errors']}")
+    for i, r in results:
+        if r.logits.shape != (cfg.n_classes,) or \
+                not np.isfinite(r.logits).all():
+            raise AssertionError(f"async request {r.uid}: bad logits")
+        if not np.array_equal(r.logits, ref[i]):
+            raise AssertionError(
+                f"async request {r.uid} (image {i}): logits {r.logits} != "
+                f"the sync engine's {ref[i]}")
+    batches = eng.total_batches
+    want = {"fused_conv": 4 * batches, "fused_nce": batches,
+            "fused_group": 0}
+    if launches != want:
+        raise AssertionError(f"async phase: launches {launches} over "
+                             f"{batches} batches; expected 4 fused_conv "
+                             f"and 1 fused_nce a batch")
+    a = stats["async"]
+    reconcile = {
+        "snn_serve_requests_total": (reg.find(
+            "snn_serve_requests_total").value, eng.total_requests),
+        "snn_serve_submitted_total": (reg.find(
+            "snn_serve_submitted_total").value, a["submitted"]),
+        "snn_serve_batches_total": (reg.find(
+            "snn_serve_batches_total").value, batches),
+        "completed": (a["completed"], 128),
+        "engine requests": (eng.total_requests, 128)}
+    off = {k: v for k, v in reconcile.items() if v[0] != v[1]}
+    if off:
+        raise AssertionError(f"async phase: counts do not reconcile: {off}")
+    trace = obs.export_chrome_trace(reg, str(pkg_dir / "async.trace.json"),
+                                    meta={"entry": "chip_smoke async"})
+    if obs_validate.main([trace, "--trace"]) != 0:
+        raise AssertionError(f"async phase: {trace} fails obs.validate")
+    print(f"vgg9 fusion=() INT4 full width, async tier (2 workers, bucket "
+          f"8) on {card}: 128 requests in {batches} batches, every logit "
+          f"vector equal to the sync engine's; launches {launches}; "
+          f"registry and engine totals reconcile; Chrome trace "
+          f"{len(reg.spans())} spans valid", flush=True)
+    print(f"  4 submitting threads: 64 requests in {t_burst * 1e3:.2f} ms "
+          f"({64 / t_burst:.1f} images/s); open loop: {report.summary()}",
+          flush=True)
+    print(f"  all 128: {128 / wall:.1f} images/s over {wall * 1e3:.2f} ms "
+          f"wall, latency p50 {stats['latency_p50_ms']:.3f} / p95 "
+          f"{stats['latency_p95_ms']:.3f} / p99 "
+          f"{stats['latency_p99_ms']:.3f} ms, queue avg "
+          f"{stats['queue_avg_ms']:.3f} ms, compute avg "
+          f"{stats['compute_avg_ms']:.3f} ms, padding waste "
+          f"{stats['padding_waste']:.3f}, {a['slots_recycled']} slot "
+          f"recycles", flush=True)
+
+    # beside it, outside the counted run: the sync engine's own 64 (the
+    # tier at 1 and 2 workers: tools/kernel_probe.py async)
+    print(f"  beside it: sync engine 64 requests in {sync_wall * 1e3:.2f} "
+          f"ms ({64 / sync_wall:.1f} images/s, p50 "
+          f"{sync_stats['latency_p50_ms']:.3f} ms, compute avg "
+          f"{sync_stats['compute_avg_ms']:.3f} ms/batch); phase "
+          f"{time.perf_counter() - t_phase:.2f} s", flush=True)
+    return {k: v for k, v in launches.items() if v}
+
+
 def main() -> int:
     import torch
 
@@ -1428,6 +1676,8 @@ def main() -> int:
         "vgg9 off": {"fused_conv": ["convs.1", "convs.2", "convs.3",
                                     "convs.4"], "fused_nce": ["fc1"]},
         "vgg9 auto": {"fused_group": ["vgg9"], "fused_nce": ["fc1"]},
+        "vgg9 async": {"fused_conv": ["convs.1", "convs.2", "convs.3",
+                                      "convs.4"], "fused_nce": ["fc1"]},
         "resnet18 auto": {
             "fused_group": ["blocks.0", "blocks.0", "blocks.3", "blocks.5",
                             "blocks.7"],
@@ -1470,6 +1720,7 @@ def main() -> int:
         same_as=flat_logits)
     runs["resnet18 auto"], _ = serve_phase(
         dev, "resnet18", "auto", {"fused_group": 5, "fused_conv": 9})
+    runs["vgg9 async"] = async_serve_phase(dev, smi)
 
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
@@ -1498,8 +1749,10 @@ def main() -> int:
           "each serve prompt length and at M=4096; geometries also holds "
           "M=256, which no path launches); launches are summed over the "
           "paths that launch the kernel (the three served SNN paths, 16 "
-          "requests in 2 batches each; the NCE step path's unfused "
-          "rollouts; the two olmo-1b runs, their prefills counted apart); "
+          "requests in 2 batches each; the async vgg9 path, 128 requests; "
+          "the NCE step path's unfused rollouts, whose lif_step row times "
+          "the packed entry they launch; the two olmo-1b runs, their "
+          "prefills counted apart); "
           "paths gives each path's launches and its kernel ms per B=8 "
           "forward (NCE: per step of each geometry; olmo: per decode step, "
           "per INT4-KV prefill, and over the serve phase's 16 prefills)",
@@ -1524,7 +1777,8 @@ def main() -> int:
                           for p, geo in paths.items() if name in geo},
                 "geometries": {g: {k: r[k] for k in (
                     "ms", "plain_ms", "library_ms", "bound_ms", "variant",
-                    "chain_ms")
+                    "chain_ms", "int32_ms", "step_ms", "step_wall_ms",
+                    "earlier_step_ms", "earlier_step_wall_ms")
                     if k in r} for g, r in rows[name].items()}}
 
     print(json.dumps({"kernels": [

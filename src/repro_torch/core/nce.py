@@ -8,10 +8,12 @@ timestep,
     AC unit:   i_syn = spikes @ W_q              (multiplier-less: binary x int)
     LIF:       v -= v>>k; v += i_syn; s = v>=theta; reset
 
-All arithmetic is int32.  A single step runs the ``spike_matmul`` and
-``lif_step`` kernels (kernels/csrc/spike_matmul.cu, lif_step.cu on a CUDA
-tensor, their plain versions on a CPU tensor); the T-step ``rollout``
-runs the ``fused_nce`` kernel, one launch for the whole rollout.
+All arithmetic is int32.  A single step runs the ``spike_matmul`` kernel
+and the ``lif_step`` kernel's packed entry, which writes the output
+spikes already packed (kernels/csrc/spike_matmul.cu, lif_step.cu on a
+CUDA tensor, their plain versions on a CPU tensor): two device kernels a
+step.  The T-step ``rollout`` runs the ``fused_nce`` kernel, one launch
+for the whole rollout.
 """
 
 from __future__ import annotations
@@ -83,10 +85,9 @@ class NeuronComputeEngine:
         """One NCE timestep.  Returns (v', out_spikes_packed
         (B, ceil(d_out/32)))."""
         i_syn = self.accumulate(spikes_packed)
-        v, s = lif_step_ops.lif_step(
+        return lif_step_ops.lif_step_packed(
             v, i_syn, leak_shift=self.cfg.leak_shift,
             threshold_q=self.cfg.threshold_q, soft_reset=self.cfg.soft_reset)
-        return v, packing.pack_bool(s)
 
     def rollout(self, spikes_packed_t: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -100,8 +101,8 @@ class NeuronComputeEngine:
 
     def rollout_unfused(self, spikes_packed_t: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Pre-fusion rollout: :meth:`step` (accumulate -> lif_step ->
-        pack_bool) for each timestep, the fusion baseline."""
+        """Pre-fusion rollout: :meth:`step` (accumulate -> lif_step with
+        the spikes packed) for each timestep, the fusion baseline."""
         t_steps, b = spikes_packed_t.shape[:2]
         dev = spikes_packed_t.device
         v = torch.zeros((b, self.d_out), dtype=torch.int32, device=dev)

@@ -23,15 +23,31 @@ totals), ``close`` flushes or abandons the queue, the engine is a
 context manager that drains on a clean exit only, and ``health()`` is
 the liveness payload.
 
-Not ported yet: the metrics registry and spans, the watchdog (so
-``health()`` has no ``watchdog`` key), and ``data_parallel`` (which
-raises).
+``begin_step``/``finish_step`` may be driven from the async tier's
+worker threads (``repro_torch.serve_async``): the bucket warmup and the
+running totals each take a lock.  Each worker enqueues on its thread's
+current stream (the device's default stream unless the caller set
+another), and ``finish_step`` waits on the event ``begin_step`` recorded
+there.
+
+Observability: the engine binds the JAX engine's instruments, by the
+same names, from a :class:`repro_torch.obs.MetricsRegistry` (the process
+default unless one is passed): request/batch/compile-hit/miss counters,
+queue-depth / batch-occupancy / padding-waste gauges, queue/compute/
+latency histograms, and the ``compile``, ``enqueue``, ``admit``,
+``step``, ``drain`` and ``close`` span events.  With the default
+registry disabled (the default) every instrument is a shared no-op.
+``attach_watchdog`` adds an SLO watchdog checked once a microbatch and
+reported by ``health()["watchdog"]``.
+
+Not ported yet: ``data_parallel`` (which raises).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 import time
 from collections import deque
 from typing import Callable, Dict, List, Optional, Tuple
@@ -39,6 +55,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.deploy.package import DeployedModel
 from repro_torch.device import resolve_device
 
@@ -67,6 +84,7 @@ class InflightStep:
     logits: torch.Tensor
     done: Optional[torch.cuda.Event]
     t0: float                       # perf_counter at dispatch
+    pad_frac: float
 
 
 @dataclasses.dataclass
@@ -93,10 +111,12 @@ class SNNServeEngine:
     """Micro-batching serve loop over a packed SNN on one device.
 
     ``model`` is moved to ``device`` (default ``"cuda"``; raises without
-    a card unless ``device="cpu"``)."""
+    a card unless ``device="cpu"``).  ``registry`` is the metrics
+    registry the instruments bind to (default: the process default)."""
 
     def __init__(self, model: DeployedModel, ecfg: SNNEngineConfig,
-                 device="cuda"):
+                 device="cuda",
+                 registry: Optional[obs.MetricsRegistry] = None):
         cfg = model.cfg
         if not cfg.int_path:
             raise ValueError("SNNServeEngine serves the packed integer "
@@ -111,6 +131,10 @@ class SNNServeEngine:
         self.queue: deque = deque()
         self.done: Dict[int, SNNRequest] = {}
         self._closed = False
+        # begin_step/finish_step may run on the async tier's worker
+        # threads: the warm set and the running totals each take a lock
+        self._compile_lock = threading.Lock()
+        self._acct_lock = threading.Lock()
         self.buckets = ecfg.resolved_buckets()
         self._warm: set = set()
         self.compile_count = 0
@@ -126,6 +150,46 @@ class SNNServeEngine:
         self.total_request_compute_s = 0.0
         self.max_latency_s = 0.0
 
+        # instruments bind once, here: with a disabled registry every
+        # handle is the shared no-op
+        self.obs = registry if registry is not None else \
+            obs.default_registry()
+        m = self.obs
+        self._m_requests = m.counter("snn_serve_requests_total",
+                                     "requests completed")
+        self._m_batches = m.counter("snn_serve_batches_total",
+                                    "microbatches served")
+        self._m_compile_miss = m.counter("snn_serve_compile_total",
+                                         "bucket executable builds",
+                                         labels={"result": "miss"})
+        self._m_compile_hit = m.counter("snn_serve_compile_total",
+                                        "bucket executable cache hits",
+                                        labels={"result": "hit"})
+        self._m_queue_depth = m.gauge("snn_serve_queue_depth",
+                                      "requests waiting for a batch")
+        self._m_occupancy = m.gauge("snn_serve_batch_occupancy",
+                                    "real requests / bucket slots, last "
+                                    "batch")
+        self._m_pad_waste = m.gauge("snn_serve_padding_waste",
+                                    "padded slots / bucket slots, last "
+                                    "batch")
+        self._m_queue_us = m.histogram("snn_serve_queue_us",
+                                       obs.LATENCY_EDGES_US,
+                                       "enqueue -> bucket admit")
+        self._m_compute_us = m.histogram("snn_serve_compute_us",
+                                         obs.LATENCY_EDGES_US,
+                                         "batched forward share")
+        self._m_latency_us = m.histogram("snn_serve_latency_us",
+                                         obs.LATENCY_EDGES_US,
+                                         "enqueue -> drain")
+        self._watchdog = None
+
+    def attach_watchdog(self, watchdog) -> None:
+        """Attach an :class:`repro_torch.obs.Watchdog`: ``finish_step``
+        evaluates its rules once per microbatch and ``health()`` folds
+        its state in."""
+        self._watchdog = watchdog
+
     # -- warmup ----------------------------------------------------------------
 
     def _forward(self, images: torch.Tensor) -> torch.Tensor:
@@ -133,17 +197,29 @@ class SNNServeEngine:
             return self.model.apply(images)
 
     def _ensure_warm(self, bucket: int) -> None:
+        """The JAX engine's compile-cache step: the first use of a bucket
+        runs one forward (counted as a compile miss, with a ``compile``
+        span), every later use is a hit."""
         if bucket in self._warm:
+            self._m_compile_hit.inc()
             return
-        cfg = self.cfg
-        x = torch.zeros((bucket, cfg.img_size, cfg.img_size,
-                         cfg.in_channels), dtype=torch.float32,
-                        device=self.device)
-        self._forward(x)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self._warm.add(bucket)
-        self.compile_count += 1
+        with self._compile_lock:     # concurrent workers warm once
+            if bucket in self._warm:
+                self._m_compile_hit.inc()
+                return
+            self._m_compile_miss.inc()
+            t0 = time.perf_counter()
+            cfg = self.cfg
+            x = torch.zeros((bucket, cfg.img_size, cfg.img_size,
+                             cfg.in_channels), dtype=torch.float32,
+                            device=self.device)
+            self._forward(x)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._warm.add(bucket)
+            self.compile_count += 1
+            self.obs.event("compile", bucket=bucket, result="miss",
+                           compile_us=(time.perf_counter() - t0) * 1e6)
 
     def warmup(self) -> int:
         """Run one forward per bucket (builds the kernels, allocates).
@@ -176,18 +252,31 @@ class SNNServeEngine:
         self.validate_request(req)
         req._t0 = time.perf_counter()
         self.queue.append(req)
+        self._m_queue_depth.set(len(self.queue))
+        self.obs.event("enqueue", uid=req.uid, queue_depth=len(self.queue))
 
     # -- main loop -------------------------------------------------------------
 
     def begin_step(self, batch: List[SNNRequest],
-                   bucket: Optional[int] = None) -> InflightStep:
+                   bucket: Optional[int] = None,
+                   queue_depth: Optional[int] = None) -> InflightStep:
         """Dispatch one formed microbatch without waiting for its result.
-        ``batch`` requests must already carry ``queue_s`` and ``_t0``."""
+        ``batch`` requests must already carry ``queue_s`` and ``_t0``;
+        ``queue_depth`` is what the ``admit`` span reports as still
+        waiting (default: the engine's own queue; the async tier passes
+        its queue's depth)."""
         n = len(batch)
         if n == 0:
             raise ValueError("begin_step needs a non-empty batch")
         if bucket is None:
             bucket = self.bucket_for(n)
+        if queue_depth is None:
+            queue_depth = len(self.queue)
+        pad_frac = (bucket - n) / bucket
+        self._m_occupancy.set(n / bucket)
+        self._m_pad_waste.set(pad_frac)
+        self.obs.event("admit", n=n, bucket=bucket, pad_frac=pad_frac,
+                       queue_depth=queue_depth)
         self._ensure_warm(bucket)
         cfg = self.cfg
         images = np.zeros((bucket, cfg.img_size, cfg.img_size,
@@ -202,7 +291,7 @@ class SNNServeEngine:
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(self.device))
         return InflightStep(batch=batch, bucket=bucket, n=n, logits=logits,
-                            done=done, t0=t0)
+                            done=done, t0=t0, pad_frac=pad_frac)
 
     def finish_step(self, st: InflightStep,
                     sink: Optional[Callable[[SNNRequest], None]] = None
@@ -215,27 +304,54 @@ class SNNServeEngine:
         logits = st.logits.cpu().numpy()
         dt = time.perf_counter() - st.t0
         bucket, n = st.bucket, st.n
-        self.per_bucket[bucket] = self.per_bucket.get(bucket, 0) + 1
-        self.total_batches += 1
-        self.total_compute_s += dt
-        self.total_padded_slots += bucket - n
-        self.total_slots += bucket
+        self._m_batches.inc()
+        self._m_compute_us.observe(dt * 1e6)
+        self.obs.event("step", bucket=bucket, n=n, pad_frac=st.pad_frac,
+                       compute_us=dt * 1e6)
         now = time.perf_counter()
+        latency_s = queue_s = max_latency_s = 0.0
         for i, req in enumerate(st.batch):
             req.image = None
             req.logits = logits[i]
             req.pred = int(np.argmax(logits[i]))
             req.compute_s = dt
             req.latency_s = now - req._t0
-            self.total_requests += 1
-            self.total_latency_s += req.latency_s
-            self.total_queue_s += req.queue_s
-            self.total_request_compute_s += dt
-            self.max_latency_s = max(self.max_latency_s, req.latency_s)
+            latency_s += req.latency_s
+            queue_s += req.queue_s
+            max_latency_s = max(max_latency_s, req.latency_s)
+        # the totals take the lock once a batch, before any request is
+        # handed on: a sink's caller may read them as soon as it resolves
+        with self._acct_lock:
+            self.per_bucket[bucket] = self.per_bucket.get(bucket, 0) + 1
+            self.total_batches += 1
+            self.total_compute_s += dt
+            self.total_padded_slots += bucket - n
+            self.total_slots += bucket
+            self.total_requests += n
+            self.total_latency_s += latency_s
+            self.total_queue_s += queue_s
+            self.total_request_compute_s += dt * n
+            self.max_latency_s = max(self.max_latency_s, max_latency_s)
+        # a disabled registry's instruments and events are no-ops: skip
+        # building their arguments (a few microseconds a batch)
+        per_request_obs = self.obs.enabled
+        for req in st.batch:
+            if per_request_obs:
+                self._m_requests.inc()
+                self._m_queue_us.observe(req.queue_s * 1e6)
+                self._m_latency_us.observe(req.latency_s * 1e6)
+                self.obs.event("drain", uid=req.uid,
+                               queue_us=req.queue_s * 1e6,
+                               compute_us=req.compute_s * 1e6,
+                               latency_us=req.latency_s * 1e6)
             if sink is None:
                 self.done[req.uid] = req
             else:
                 sink(req)
+        if self._watchdog is not None:
+            # after the drain loop: the instruments the rules read hold
+            # this microbatch
+            self._watchdog.check()
         return n
 
     def step(self) -> int:
@@ -250,6 +366,7 @@ class SNNServeEngine:
             req = self.queue.popleft()
             req.queue_s = t_admit - req._t0
             batch.append(req)
+        self._m_queue_depth.set(len(self.queue))
         return self.finish_step(self.begin_step(batch))
 
     def run_until_done(self, max_steps: int = 10_000) -> dict:
@@ -276,14 +393,20 @@ class SNNServeEngine:
         """Flush the queue (``drain=True``) or abandon it, then refuse new
         requests.  Idempotent; returns the final :meth:`stats`.  As a
         context manager the engine drains on a clean exit and abandons
-        the queue when the block raises."""
-        if not self._closed:
-            if drain:
-                while self.queue:
-                    self.step()
-            else:
-                self.queue.clear()
-            self._closed = True
+        the queue when the block raises.  The ``close`` span counts the
+        requests drained and the ones abandoned."""
+        if self._closed:
+            return self.stats()
+        drained = stranded = 0
+        if drain:
+            while self.queue:
+                drained += self.step()
+        else:
+            stranded = len(self.queue)
+            self.queue.clear()
+        self._closed = True
+        self._m_queue_depth.set(0)
+        self.obs.event("close", drained=drained, stranded=stranded)
         return self.stats()
 
     def __enter__(self) -> "SNNServeEngine":
@@ -293,10 +416,11 @@ class SNNServeEngine:
         self.close(drain=exc_type is None)
 
     def health(self) -> dict:
-        """Liveness payload (the JAX engine's keys, less ``watchdog``,
-        which is not ported): queue depth, closed flag, results not yet
-        drained, running totals, the warmed buckets and the model."""
-        return {
+        """Liveness payload for ``/healthz`` (the JAX engine's keys):
+        queue depth, closed flag, results not yet drained, running
+        totals, the warmed buckets, the model, and the attached
+        watchdog's state."""
+        body = {
             "queue_depth": len(self.queue),
             "closed": self._closed,
             "undrained_results": len(self.done),
@@ -312,6 +436,9 @@ class SNNServeEngine:
                 "timesteps": self.cfg.timesteps,
             },
         }
+        if self._watchdog is not None:
+            body["watchdog"] = self._watchdog.health()
+        return body
 
     def graph_summary(self) -> str:
         """The served model's graph, one line per node, with fusion-group

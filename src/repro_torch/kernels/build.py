@@ -11,6 +11,11 @@ launch; :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Nothing here runs at import time: this module imports on hosts without
 ``nvcc`` or a card, where only the plain versions run.
+
+:func:`count_launch` is the one place a wrapper bumps its ``launches``
+counter: under a lock, since the async serving tier launches forwards
+from several worker threads at once and ``f.launches += 1`` alone can
+lose an update between threads.
 """
 
 from __future__ import annotations
@@ -34,6 +39,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (a launched kernel), atomically
+    across threads."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def _nvcc() -> str:

@@ -58,6 +58,7 @@
 #include <cuda_runtime.h>
 
 #include "int8_mma.cuh"
+#include "smem_cap.cuh"
 
 namespace {
 
@@ -363,26 +364,15 @@ fused_conv_kernel(const int32_t* __restrict__ planes,  // (T,B,H,W,wc)
   }
 }
 
-// the kernel's attributes on the current device, set only when its shared
-// memory changes (a launch is host-bound: each cudaFuncSetAttribute costs
-// microseconds)
+// the kernel's shared-memory cap is raised once per device (smem_cap.cuh)
 template <int BITS, bool STAGED>
 cudaError_t launch(const void* planes, const void* w, const void* theta,
                    void* v_out, void* s_out, const Geom& g, size_t smem,
                    int blocks, cudaStream_t stream) {
-  constexpr int kDevices = 16;
-  static size_t set_smem[kDevices] = {};
-  auto kern = fused_conv_kernel<BITS, STAGED>;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static std::atomic<bool> cap_raised[smemcap::kDevices] = {};
+  cudaError_t err = smemcap::raise(fused_conv_kernel<BITS, STAGED>, false,
+                                   cap_raised);
   if (err != cudaSuccess) return err;
-  if (dev >= kDevices || smem != set_smem[dev]) {
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    if (dev < kDevices) set_smem[dev] = smem;
-  }
   fused_conv_kernel<BITS, STAGED><<<blocks, kThreads, smem, stream>>>(
       static_cast<const int32_t*>(planes), static_cast<const int32_t*>(w),
       static_cast<const int32_t*>(theta), static_cast<int32_t*>(v_out),

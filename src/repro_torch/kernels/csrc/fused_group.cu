@@ -74,6 +74,7 @@
 #include <cuda_runtime.h>
 
 #include "int8_mma.cuh"
+#include "smem_cap.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -626,34 +627,18 @@ size_t smem_bytes(const Chain& chain, int tc, int cl, int stage_mask,
                 : 2 * static_cast<size_t>(tc) * chain.buf_words);
 }
 
-// the kernel's attributes on the current device, set only when the
-// shared memory changes (a launch is host-bound: each
-// cudaFuncSetAttribute costs microseconds)
+// the kernel's shared-memory cap, raised once per device (smem_cap.cuh)
 template <int BITS>
-cudaError_t set_attrs(size_t smem) {
-  constexpr int kDevices = 16;
-  static size_t set_smem[kDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kDevices && smem == set_smem[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      fused_group_kernel<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(
-        fused_group_kernel<BITS>,
-        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  }
-  if (err == cudaSuccess && dev < kDevices) set_smem[dev] = smem;
-  return err;
+cudaError_t set_attrs() {
+  static std::atomic<bool> cap_raised[smemcap::kDevices] = {};
+  return smemcap::raise(fused_group_kernel<BITS>, true, cap_raised);
 }
 
 template <int BITS>
 cudaError_t launch(const void* planes, void* s_out, const Chain& chain,
                    size_t smem, int cl, int T, int B, int leak_shift,
                    int v_reset, int soft_reset, cudaStream_t stream) {
-  cudaError_t err = set_attrs<BITS>(smem);
+  cudaError_t err = set_attrs<BITS>();
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cl, B);
@@ -677,7 +662,7 @@ cudaError_t launch(const void* planes, void* s_out, const Chain& chain,
 
 template <int BITS>
 int max_clusters(int cl, size_t smem) {
-  if (set_attrs<BITS>(smem) != cudaSuccess) return -1;
+  if (set_attrs<BITS>() != cudaSuccess) return -1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cl, 1);
   cfg.blockDim = dim3(kThreads);

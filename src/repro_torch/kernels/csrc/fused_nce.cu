@@ -108,12 +108,12 @@ cudaError_t launch(const void* spikes, const void* w, const void* theta,
                    int d_in, int wpr, int n, int n_pad, int rb, int split,
                    int leak_shift, int v_reset, int soft_reset,
                    cudaStream_t stream) {
-  static size_t set_smem[nceprod::kDevices] = {};
+  static std::atomic<bool> cap_raised[smemcap::kDevices] = {};
   const size_t smem =
       nceprod::smem_words(nceprod::make_layout(T, rb, kwords, split, BITS)) *
       sizeof(int32_t);
   return nceprod::launch_cluster(
-      fused_nce_kernel<BITS>, set_smem, smem, split, n_pad / 32,
+      fused_nce_kernel<BITS>, cap_raised, smem, split, n_pad / 32,
       (m + rb - 1) / rb, stream, static_cast<const int32_t*>(spikes),
       static_cast<const int32_t*>(w), static_cast<const int32_t*>(theta),
       static_cast<int32_t*>(v_out), static_cast<int32_t*>(s_out), T, m,

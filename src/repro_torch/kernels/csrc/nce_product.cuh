@@ -26,6 +26,7 @@
 #include <cuda_runtime.h>
 
 #include "int8_mma.cuh"
+#include "smem_cap.cuh"
 
 namespace nceprod {
 
@@ -196,30 +197,15 @@ __device__ __forceinline__ int sum_partials(cg::cluster_group& cluster,
 }
 
 // Launch `kern` as (split, groups, row chunks) blocks in clusters of
-// `split` along x.  The kernel's attributes on the current device are set
-// only when its shared memory changes (`set_smem`, one slot per device, a
-// static of the caller's): a launch is host-bound, and each
-// cudaFuncSetAttribute costs microseconds.
-constexpr int kDevices = 16;
-
+// `split` along x.  The kernel's shared-memory cap is raised once per
+// device (smem_cap.cuh; `cap_raised` is a static of the caller's).
 template <typename Kern, typename... Args>
-cudaError_t launch_cluster(Kern kern, size_t (&set_smem)[kDevices],
+cudaError_t launch_cluster(Kern kern,
+                           std::atomic<bool> (&cap_raised)[smemcap::kDevices],
                            size_t smem, int split, int groups, int chunks,
                            cudaStream_t stream, Args... args) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = smemcap::raise(kern, true, cap_raised);
   if (err != cudaSuccess) return err;
-  if (dev >= kDevices || smem != set_smem[dev]) {
-    err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(
-          kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    }
-    if (err != cudaSuccess) return err;
-    if (dev < kDevices) set_smem[dev] = smem;
-  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(split, groups, chunks);
   cfg.blockDim = dim3(kThreads);

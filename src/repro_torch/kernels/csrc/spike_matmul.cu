@@ -79,12 +79,12 @@ template <int BITS>
 cudaError_t launch(const void* spikes, const void* w, void* out, int m,
                    int kwords, int d_in, int wpr, int n, int rb, int split,
                    cudaStream_t stream) {
-  static size_t set_smem[nceprod::kDevices] = {};
+  static std::atomic<bool> cap_raised[smemcap::kDevices] = {};
   const size_t smem =
       nceprod::smem_words(nceprod::make_layout(1, rb, kwords, split, BITS)) *
       sizeof(int32_t);
   return nceprod::launch_cluster(
-      spike_matmul_kernel<BITS>, set_smem, smem, split, (n + 31) / 32,
+      spike_matmul_kernel<BITS>, cap_raised, smem, split, (n + 31) / 32,
       (m + rb - 1) / rb, stream, static_cast<const int32_t*>(spikes),
       static_cast<const int32_t*>(w), static_cast<int32_t*>(out), m, kwords,
       d_in, wpr, n, rb);

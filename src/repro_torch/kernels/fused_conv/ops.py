@@ -171,7 +171,7 @@ def fused_conv_rollout(
         raise RuntimeError(
             f"fused_conv kernel launch failed: CUDA error {err} "
             f"({lib.fused_conv_error_string(err).decode()})")
-    fused_conv_rollout.launches += 1
+    _build.count_launch(fused_conv_rollout)
     return v, out
 
 

@@ -399,7 +399,7 @@ def fused_group_rollout(
         raise RuntimeError(
             f"fused_group kernel launch failed: CUDA error {err} "
             f"({lib.fused_group_error_string(err).decode()})")
-    fused_group_rollout.launches += 1
+    _build.count_launch(fused_group_rollout)
     v = v_out.reshape(b, h_lc, w_lc, n_lc)
     return (v[..., :last_qct.c_out],
             out.reshape(t_steps, b, hf, wf, n_lc // 32))

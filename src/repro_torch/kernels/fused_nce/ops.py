@@ -164,7 +164,7 @@ def fused_nce_rollout(
         raise RuntimeError(
             f"fused_nce kernel launch failed: CUDA error {err} "
             f"({lib.fused_nce_error_string(err).decode()})")
-    fused_nce_rollout.launches += 1
+    _build.count_launch(fused_nce_rollout)
     return v[:, :n], out
 
 

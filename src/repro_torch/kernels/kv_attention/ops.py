@@ -128,7 +128,7 @@ def quant_kv_decode_attention(
         raise RuntimeError(
             f"kv_attention kernel launch failed: CUDA error {err} "
             f"({lib.kv_attention_error_string(err).decode()})")
-    quant_kv_decode_attention.launches += 1
+    _build.count_launch(quant_kv_decode_attention)
     return out
 
 

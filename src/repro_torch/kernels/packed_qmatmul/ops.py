@@ -144,7 +144,7 @@ def qmatmul(x: torch.Tensor, qt: QuantizedTensor) -> torch.Tensor:
         raise RuntimeError(
             f"packed_qmatmul kernel launch failed: CUDA error {err} "
             f"({lib.packed_qmatmul_error_string(err).decode()})")
-    qmatmul.launches += 1
+    _build.count_launch(qmatmul)
     return out.reshape(*lead, n)
 
 

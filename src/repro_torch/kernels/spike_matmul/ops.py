@@ -111,7 +111,7 @@ def spike_matmul(
         raise RuntimeError(
             f"spike_matmul kernel launch failed: CUDA error {err} "
             f"({lib.spike_matmul_error_string(err).decode()})")
-    spike_matmul.launches += 1
+    _build.count_launch(spike_matmul)
     return out.reshape(*lead, n)
 
 

@@ -30,7 +30,10 @@ the CUDA tests' tolerances:
   lane maps and the quad-shuffle words, and ``spike_matmul`` as
   ``fused_nce``'s product at T=1 over every split, bit-exact;
 * the wrappers' launch plans (cluster size, T chunk, weight staging,
-  contraction split, conv teams) within ``SMEM_LIMIT``.
+  contraction split, conv teams) within ``SMEM_LIMIT``;
+* ``lif_step``'s packed entry: its warp-stride walk over (row, word)
+  pairs, each lane's unsigned-add LIF and the warp's ``__ballot_sync``,
+  bit for bit against ``lif_step_ref`` then ``pack_bool``.
 """
 
 import numpy as np
@@ -52,6 +55,7 @@ from repro_torch.kernels.kv_attention import ops as kv_ops
 from repro_torch.kernels.kv_attention import ref as kv_ref
 from repro_torch.kernels.packed_qmatmul import ops as qmm_ops
 from repro_torch.kernels.packed_qmatmul import ref as qmm_ref
+from repro_torch.kernels.lif_step.ref import lif_step_ref
 from repro_torch.kernels.spike_matmul.ref import spike_matmul_ref
 from repro_torch.quant.formats import PrecisionConfig
 from repro_torch.quant.ptq import quantize, quantize_conv
@@ -1154,3 +1158,74 @@ def test_conv_plan_reads_l2_codes_past_the_budget():
                                    (64, 8, 36, (4, 16))):
         ks, bpg, staged = conv_ops._conv_plan(8, npix, groups, nk, nk * 4)
         assert (ks, bpg) == want and staged and groups * bpg == 128
+
+
+# ---------------------------------------------------------------------------
+# lif_step's packed entry (csrc/lif_step.cu, lif_step_packed_kernel)
+# ---------------------------------------------------------------------------
+
+def _lif_lanes(v, i, *, k, theta, v_reset, soft):
+    """``lif1`` for the 32 lanes of a warp: unsigned adds that wrap, the
+    arithmetic shift, the reset."""
+    u = (v.astype(np.uint32) - (v >> k).astype(np.uint32)
+         + i.astype(np.uint32))
+    vn = u.view(np.int32)
+    fire = vn >= theta
+    if soft:
+        vn = np.where(fire, (u - np.uint32(theta & 0xFFFFFFFF)).view(
+            np.int32), vn)
+    else:
+        vn = np.where(fire, np.int32(v_reset), vn)
+    return vn, fire
+
+
+def _lif_packed_emulated(v, i, *, k, theta, v_reset, soft, max_blocks=4096):
+    """The packed kernel lane by lane: 256-thread blocks (8 warps), the
+    launch's block count, each warp walking g = its global warp index,
+    then + every warp of the grid, over rows * words pairs; lanes past
+    the row's end take part in the ballot with a 0 bit."""
+    rows, n = v.shape
+    nw = -(-n // 32)
+    total = rows * nw
+    blocks = min(max_blocks, -(-total // 8))
+    flat_v, flat_i = v.reshape(-1), i.reshape(-1)
+    v_out = np.full(rows * n, 0x5A5A5A5A, np.int32)   # poison: all written
+    words = np.full(total, 0x5A5A5A5A, np.int32)
+    visits = np.zeros(total, np.int64)
+    lanes = np.arange(32)
+    for warp in range(blocks * 8):
+        for g in range(warp, total, blocks * 8):
+            r, w = divmod(g, nw)
+            col = w * 32 + lanes
+            live = col < n
+            e = r * n + col[live]
+            vn, fire = _lif_lanes(flat_v[e], flat_i[e], k=k, theta=theta,
+                                  v_reset=v_reset, soft=soft)
+            v_out[e] = vn
+            bits = np.zeros(32, np.uint64)
+            bits[live] = fire
+            ballot = int((bits << lanes.astype(np.uint64)).sum())
+            words[g] = np.uint32(ballot).view(np.int32)
+            visits[g] += 1
+    assert (visits == 1).all()               # every word once
+    return v_out.reshape(rows, n), words.reshape(rows, nw)
+
+
+@pytest.mark.parametrize("soft", [True, False])
+@pytest.mark.parametrize("rows,n,max_blocks", [
+    (8, 100, 4096), (8, 512, 4096), (64, 2048, 4096), (5, 100, 3),
+    (3, 2048, 2), (1, 1, 4096)])
+def test_lif_packed_ballot_walk_matches_pack_bool(rows, n, max_blocks, soft):
+    g = np.random.default_rng(rows * n + soft)
+    v = g.integers(-400, 400, (rows, n)).astype(np.int32)
+    i = g.integers(-150, 250, (rows, n)).astype(np.int32)
+    v[0, :4] = (2**31 - 1, -2**31, 2**31 - 8, -2**31 + 3)[:n]  # wraparound
+    i[0, :4] = (1, -1, 100, -100)[:n]
+    kw = dict(leak_shift=3, threshold_q=64, v_reset_q=-7, soft_reset=soft)
+    got_v, got_w = _lif_packed_emulated(
+        v, i, k=3, theta=64, v_reset=-7, soft=soft, max_blocks=max_blocks)
+    pv, ps = lif_step_ref(torch.from_numpy(v), torch.from_numpy(i), **kw)
+    np.testing.assert_array_equal(got_v, pv.numpy())
+    np.testing.assert_array_equal(got_w, packing.pack_bool(ps).numpy())
+    if n % 32 == 0 and rows * n >= 512:
+        assert (got_w < 0).any()             # a spike at bit 31 wraps

@@ -326,6 +326,88 @@ def test_fused_group_empty_rollout_and_budget(cuda):
     assert group_ops.fused_group_rollout.launches == before
 
 
+def _threaded_cases(cuda):
+    """(name, call) pairs whose calls launch one kernel each at shared
+    memory sizes that differ within one template instance: vgg9's four
+    convs (all ``<4, staged>``), fc1 at two batch sizes (two contraction
+    splits) and the vgg9 chain at two batch sizes."""
+    cases = []
+    for i, (hw, c_in, c_out) in enumerate([(32, 64, 64), (16, 64, 128),
+                                           (16, 128, 128), (8, 128, 256)]):
+        planes = _spikes((4, 8, hw, hw, c_in), 40 + i).to(cuda)
+        wf = torch.from_numpy((np.random.default_rng(40 + i)
+                               .standard_normal((3, 3, c_in, c_out))
+                               * 0.2).astype(np.float32))
+        qct = quantize_conv(wf, PrecisionConfig(bits=4)).to(cuda)
+        kw = dict(leak_shift=3, v_reset_q=-3, soft_reset=True,
+                  threshold_q=_theta(40 + i, c_out, 4).to(cuda))
+        cases.append((conv_ops.fused_conv_rollout,
+                      fused_conv_rollout_torch, (planes, qct), kw))
+    wf = torch.from_numpy((np.random.default_rng(50).standard_normal(
+        (512, 4096)) * 0.05).astype(np.float32))
+    qt = quantize(wf, PrecisionConfig(bits=4)).to(cuda)
+    for m in (8, 1):
+        kw = dict(d_in=4096, leak_shift=3, v_reset_q=-2, soft_reset=True,
+                  threshold_q=_theta(50, 512, 4).mul(2).to(cuda))
+        cases.append((nce_ops.fused_nce_rollout, fused_nce_rollout_torch,
+                      (_spikes((4, m, 4096), 50 + m).to(cuda), qt), kw))
+    hw, c_in, spec = _VGG9
+    members = _group_members(spec, c_in, 4, 60, cuda)
+    for b in (8, 2):
+        cases.append((group_ops.fused_group_rollout,
+                      fused_group_rollout_torch,
+                      (_spikes((4, b, hw, hw, c_in), 60 + b).to(cuda),
+                       members), dict(leak_shift=3, v_reset_q=-3,
+                                      soft_reset=True)))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads", [2, 4])
+def test_spiking_kernels_launched_from_threads(cuda, threads):
+    """Host threads launching at once (as the async tier's workers do:
+    the wrappers release the interpreter lock in their launches), each
+    walking the cases in its own order, at shared-memory sizes that
+    differ within one kernel instance: every result bit-exact, every
+    launch counted."""
+    import threading
+
+    cases = _threaded_cases(cuda)
+    refs = [ref(*args, **kw) for _, ref, args, kw in cases]
+    rounds = 6
+    wrappers = {fn for fn, _, _, _ in cases}
+    before = {fn: fn.launches for fn in wrappers}
+    got = [[] for _ in range(threads)]
+    errors = []
+
+    def work(tid):
+        rng = np.random.default_rng(tid)
+        try:
+            for _ in range(rounds):     # every case once a round
+                for i in rng.permutation(len(cases)):
+                    fn, _, args, kw = cases[i]
+                    got[tid].append((i, fn(*args, **kw)))
+        except Exception as exc:     # reported below, on the test's thread
+            errors.append(exc)
+
+    ts = [threading.Thread(target=work, args=(t,)) for t in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in ts), "a launching thread hung"
+    assert not errors, errors
+    torch.cuda.synchronize()
+    for tid in range(threads):
+        assert len(got[tid]) == rounds * len(cases)
+        for i, (kv, ks) in got[tid]:
+            pv, ps = refs[i]
+            assert torch.equal(kv, pv) and torch.equal(ks, ps), (tid, i)
+    for fn in wrappers:
+        n = sum(f is fn for f, _, _, _ in cases)
+        assert fn.launches == before[fn] + threads * rounds * n
+
+
 # --- the NCE step kernels: bit-exact ------------------------------------
 
 
@@ -402,6 +484,48 @@ def test_lif_step_kernel_matches_plain(cuda, shape, soft):
     assert lif_ops.lif_step.launches == before + 1
     assert torch.equal(kv.cpu(), pv) and torch.equal(ks.cpu(), ps)
     assert 0 < int(ps.sum()) < ps.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("soft", [True, False])
+@pytest.mark.parametrize("shape", [
+    (8, 512), (64, 2048), (8, 100), (5, 37), (3, 7, 11), (1, 1), (2, 33),
+    (4097, 64)])
+def test_lif_step_packed_kernel_matches_plain(cuda, shape, soft):
+    """The packed entry: v' and the words bit-exact with lif_step_ref then
+    pack_bool, ragged rows (zero bits past the end), bit 31, wraparound
+    and a grid past 4096 blocks (4097 x 64: the warp-stride loop)."""
+    g = np.random.default_rng(shape[-1] * 3 + soft)
+    v = torch.from_numpy(g.integers(-300, 300, shape).astype(np.int32))
+    i = torch.from_numpy(g.integers(-200, 200, shape).astype(np.int32))
+    v.view(-1)[:2] = torch.tensor([2**31 - 1, -2**31], dtype=torch.int32)[
+        :v.numel()]
+    kw = dict(leak_shift=3, threshold_q=64, v_reset_q=-5, soft_reset=soft)
+    pv, ps = lif_ref.lif_step_ref(v, i, **kw)
+    before = lif_ops.lif_step.launches
+    kv, kwords = lif_ops.lif_step_packed(v.to(cuda), i.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert lif_ops.lif_step.launches == before + 1
+    assert torch.equal(kv.cpu(), pv)
+    assert torch.equal(kwords.cpu(), packing.pack_bool(ps))
+
+
+@pytest.mark.cuda
+def test_lif_step_packed_on_a_strided_view_and_empty(cuda):
+    g = np.random.default_rng(7)
+    v = torch.from_numpy(g.integers(-300, 300, (6, 96)).astype(np.int32))
+    i = torch.from_numpy(g.integers(-200, 200, (6, 96)).astype(np.int32))
+    kw = dict(leak_shift=2, threshold_q=40)
+    pv, ps = lif_ref.lif_step_ref(v[:, 1:], i[:, 1:], **kw)
+    kv, kwords = lif_ops.lif_step_packed(v.to(cuda)[:, 1:],
+                                         i.to(cuda)[:, 1:], **kw)
+    assert torch.equal(kv.cpu(), pv)
+    assert torch.equal(kwords.cpu(), packing.pack_bool(ps))
+    before = lif_ops.lif_step.launches
+    e = torch.zeros((0, 64), dtype=torch.int32, device=cuda)
+    ev, ew = lif_ops.lif_step_packed(e, e, **kw)
+    assert ev.shape == (0, 64) and ew.shape == (0, 2)
+    assert lif_ops.lif_step.launches == before
 
 
 # --- the LM kernels: float, within the stated tolerance --------------------

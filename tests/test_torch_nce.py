@@ -21,6 +21,7 @@ import torch
 
 from repro.core import encoding as jenc
 from repro.core import nce as jnce
+from repro.core import packing as jpacking
 from repro.kernels.lif_step.ref import lif_step_ref as jlif_ref
 from repro.kernels.spike_matmul.ref import spike_matmul_ref as jsm_ref
 from repro.quant.formats import PrecisionConfig as JPC
@@ -81,6 +82,33 @@ def test_lif_step_plain_matches_repro(soft, shape):
     assert 0 < int(ps.sum()) < ps.numel()
 
 
+@pytest.mark.parametrize("soft,shape", [(True, (4, 37)), (False, (4, 37)),
+                                        (True, (8, 100)), (False, (8, 100)),
+                                        (True, (2, 3, 64)), (False, (8, 512))])
+def test_lif_step_packed_plain_matches_repro(soft, shape):
+    """The packed entry's plain version (lif_step_ref, then pack_bool)
+    against JAX's lif_step_ref and pack_bool: v' and the words, bit 31
+    (the sign bit) and the zero bits past a ragged row's end included."""
+    g = np.random.default_rng(shape[-1] + soft)
+    v = g.integers(-400, 400, shape).astype(np.int32)
+    i = g.integers(-150, 250, shape).astype(np.int32)
+    kw = dict(leak_shift=3, threshold_q=64, v_reset_q=-7, soft_reset=soft)
+    jv, js = jlif_ref(jnp.asarray(v), jnp.asarray(i), **kw)
+    jwords = np.asarray(jpacking.pack_bool(js))
+    before = lif_ops.lif_step.launches
+    pv, pw = lif_ops.lif_step_packed(torch.from_numpy(v),
+                                     torch.from_numpy(i), **kw)
+    assert lif_ops.lif_step.launches == before      # no kernel on the CPU
+    assert pw.dtype == torch.int32
+    assert pw.shape == (*shape[:-1], -(-shape[-1] // 32))
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(pw.numpy(), jwords)
+    if shape[-1] % 32 == 0:
+        assert (pw.numpy() < 0).any()               # a bit-31 spike wraps
+    else:
+        assert not (pw.numpy()[..., -1] >> (shape[-1] % 32)).any()
+
+
 def _engines(bits, soft, d_in=75, d_out=45):
     theta = {2: 3, 4: 8, 8: 24}[bits]    # some neurons fire, some do not
     wf, _, _ = _weights(d_in, d_out, bits, seed=bits * 7 + d_in)
@@ -119,6 +147,29 @@ def test_engine_step_and_unfused_rollout_match_repro(bits, soft):
     np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
     assert ps.shape == (5, 4, 2) and ps.any()
     assert not torch.equal(ps, torch.full_like(ps, -1))
+
+
+@pytest.mark.parametrize("bits,soft,d_in,d_out", [
+    (b, s, d_in, d_out) for b in (2, 4, 8) for s in (True, False)
+    for d_in, d_out in ((130, 100), (96, 512))])
+def test_step_and_unfused_rollout_match_repro_at_served_widths(
+        bits, soft, d_in, d_out):
+    """``step`` (spike_matmul, then the packed LIF entry) and
+    ``rollout_unfused`` against JAX's ``step`` (lif_step, then
+    pack_bool) at a ragged d_out (100) and fc1's (512)."""
+    jeng, eng = _engines(bits, soft, d_in=d_in, d_out=d_out)
+    sp = _spikes((3, 8, d_in), seed=bits + d_out)
+    v0 = np.random.default_rng(d_out).integers(-60, 60, (8, d_out)).astype(
+        np.int32)
+    jv, js = jeng.step(jnp.asarray(v0), jnp.asarray(sp[0]))
+    pv, ps = eng.step(torch.from_numpy(v0), torch.from_numpy(sp[0]))
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
+    jv, js = jeng.rollout_unfused(jnp.asarray(sp))
+    pv, ps = eng.rollout_unfused(torch.from_numpy(sp))
+    np.testing.assert_array_equal(pv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
+    assert ps.shape == (3, 8, -(-d_out // 32)) and ps.any()
 
 
 @pytest.mark.parametrize("bits,soft,t_steps", [

@@ -151,6 +151,8 @@ def test_slice3_wrappers_refuse_devices_they_have_no_kernel_for():
     with pytest.raises(ValueError, match="unsupported device"):
         lif_ops.lif_step(v, v, leak_shift=3, threshold_q=4)
     with pytest.raises(ValueError, match="unsupported device"):
+        lif_ops.lif_step_packed(v, v, leak_shift=3, threshold_q=4)
+    with pytest.raises(ValueError, match="unsupported device"):
         qmm_ops.qmatmul(torch.zeros((2, 64), **meta), qt)
     kp = torch.zeros((1, 8, 2, 2), dtype=torch.int32, **meta)
     ks = torch.zeros((1, 8, 2, 1), **meta)
@@ -173,3 +175,33 @@ def test_packed_qmatmul_refuses_zero_point_off_the_cpu():
     assert qmm_ops.qmatmul(torch.randn(2, 64), qt).shape == (2, 32)
     with pytest.raises(ValueError, match="zero-point"):
         qmm_ops.qmatmul(torch.zeros((2, 64), device="meta"), qt)
+
+
+def test_async_tier_and_loadgen_without_device_raise_without_cuda(
+        monkeypatch):
+    """The async tier, the launcher's ``--async`` and loadgen run on the
+    card unless asked for the CPU: without one they raise, and a tier
+    whose engine sits on a CUDA device refuses to start where the card
+    is gone."""
+    import types
+
+    from repro_torch.deploy import (
+        SNNEngineConfig, SNNServeEngine, deploy, deploy_config)
+    from repro_torch.launch import serve_snn
+    from repro_torch.models import snn_cnn
+    from repro_torch.serve_async import AsyncSNNServeEngine, loadgen
+
+    cfg = deploy_config("vgg9", 4)
+    model = deploy(snn_cnn.init(0, cfg, device="cpu"), cfg, device="cpu")
+    cpu_engine = SNNServeEngine(model, SNNEngineConfig(), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    AsyncSNNServeEngine(cpu_engine).close()        # asked for the CPU
+    on_card = types.SimpleNamespace(device=torch.device("cuda"))
+    for call in (lambda: AsyncSNNServeEngine(on_card),
+                 lambda: serve_snn.main(["--async"]),
+                 lambda: serve_snn.main(["--async", "--trace",
+                                         "/dev/null"]),
+                 lambda: loadgen.main([]),
+                 lambda: loadgen.main(["--mode", "async"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()

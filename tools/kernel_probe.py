@@ -5,6 +5,8 @@
     python3 tools/kernel_probe.py snn      # the fused_group probe alone
     python3 tools/kernel_probe.py nce conv loops clocks  # 4-7
     python3 tools/kernel_probe.py state                  # 8
+    python3 tools/kernel_probe.py async                  # 9
+    python3 tools/kernel_probe.py finish [TREE ...]      # 10
 
 1. ``packed_qmatmul`` per linear of olmo-1b's shapes (2048->2048,
    2048->8192, 8192->2048, W4, bf16 x) at M = 1, 8, 256 and 4096: device
@@ -60,6 +62,23 @@
    library's C entry point, a few microseconds apart) beside the
    wrapper's (one a call, tens of microseconds apart), with the SM and
    memory clocks, performance state and power ``nvidia-smi`` reads.
+
+9. ``async`` (run it in a process of its own): vgg9 ``fusion=()`` at
+   full width, INT4, buckets pinned to (8,): a forward's wall time on a
+   thread's first call and its second, on a fresh thread each; the sync
+   engine over 3 rounds of 64 requests; then ``AsyncSNNServeEngine``
+   with 1 and 2 workers, and 1 worker with the interpreter's switch
+   interval at 0.1 ms, each over 3 rounds of 64 requests submitted at
+   once into the started tier (images/s, batches and compute a batch
+   per round; round 1 holds the workers' first forwards).
+10. ``finish``: ``SNNServeEngine.finish_step``'s host time a batch of 8,
+   the registry off, in each TREE given (default: this one), each in a
+   process of its own with ``TREE/src`` first on the path, in the order
+   given (pass ``PARENT . . PARENT`` to compare a change with its
+   parent): 5 rounds of 2000 batches each with the logits on the card
+   (the served path: the event is already complete, the copy to the
+   host included) and on the host (the bookkeeping alone); prints the
+   median round's microseconds a batch.
 
 Prints the card's name and power limit first.  Needs a card and nvcc.
 """
@@ -1067,6 +1086,150 @@ def state(dev):
               f"(card: {clk})", flush=True)
 
 
+def async_tier(dev):
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.deploy import (
+        SNNEngineConfig, SNNRequest, SNNServeEngine, deploy, deploy_config)
+    from repro_torch.models import snn_cnn
+    from repro_torch.serve_async import AsyncEngineConfig, AsyncSNNServeEngine
+
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = deploy_config("vgg9", 4, smoke=False)
+    model = deploy(snn_cnn.init(0, cfg, device=dev), cfg, device=dev)
+    images = np.random.default_rng(1).random(
+        (64, cfg.img_size, cfg.img_size, cfg.in_channels)).astype(np.float32)
+    ecfg = SNNEngineConfig(max_batch=8, buckets=(8,))
+    x = torch.from_numpy(images[:8]).to(dev)
+
+    def forward():
+        with torch.inference_mode():
+            model.apply(x)
+        torch.cuda.synchronize()
+
+    forward()
+    for _ in range(2):
+        times = []
+
+        def twice():
+            for _ in range(2):
+                t0 = time.perf_counter()
+                forward()
+                times.append((time.perf_counter() - t0) * 1e3)
+
+        th = threading.Thread(target=twice)
+        th.start()
+        th.join(timeout=60)
+        print(f"async: a forward on a fresh thread: first call "
+              f"{times[0]:.3f} ms, second {times[1]:.3f} ms", flush=True)
+
+    eng = SNNServeEngine(model, ecfg, device=dev)
+    eng.warmup()
+    for rnd in range(3):
+        for uid in range(64):
+            eng.add_request(SNNRequest(uid=uid, image=images[uid]))
+        t0 = time.perf_counter()
+        st = eng.run_until_done()
+        wall = time.perf_counter() - t0
+        for uid in range(64):
+            eng.pop_result(uid)
+        print(f"async: sync engine round {rnd}: {64 / wall:.1f} images/s, "
+              f"{st['compute_avg_ms']:.3f} ms compute a batch (running)",
+              flush=True)
+
+    for workers, switch in ((1, None), (2, None), (1, 1e-4)):
+        old = sys.getswitchinterval()
+        if switch is not None:
+            sys.setswitchinterval(switch)
+        try:
+            aeng = AsyncSNNServeEngine(SNNServeEngine(model, ecfg,
+                                                      device=dev),
+                                       AsyncEngineConfig(workers=workers))
+            aeng.warmup()
+            aeng.start()
+            for rnd in range(3):
+                b0 = aeng.engine.total_batches
+                c0 = aeng.engine.total_compute_s
+                t0 = time.perf_counter()
+                futs = [aeng.submit(im) for im in images]
+                if not all(f.result(timeout=60).ok for f in futs):
+                    raise AssertionError("async probe: a request failed")
+                wall = time.perf_counter() - t0
+                nb = aeng.engine.total_batches - b0
+                comp = (aeng.engine.total_compute_s - c0) / nb
+                print(f"async: {workers} worker(s), switch interval "
+                      f"{sys.getswitchinterval() * 1e3:g} ms, round {rnd}: "
+                      f"{64 / wall:.1f} images/s, {nb} batches, "
+                      f"{comp * 1e3:.3f} ms compute a batch", flush=True)
+            aeng.close(timeout=60)
+        finally:
+            sys.setswitchinterval(old)
+
+
+_FINISH = r"""
+import dataclasses, json, statistics, sys, time
+import torch
+from repro_torch.deploy import (SNNEngineConfig, SNNRequest, SNNServeEngine,
+                                deploy, deploy_config)
+from repro_torch.deploy.engine import InflightStep
+from repro_torch.models import snn_cnn
+dev = torch.device("cuda", 0)
+cfg = deploy_config("vgg9", 4, smoke=True)
+model = deploy(snn_cnn.init(0, cfg, device=dev), cfg, device=dev)
+eng = SNNServeEngine(model, SNNEngineConfig(max_batch=8, buckets=(8,)),
+                     device=dev)
+has_pad = "pad_frac" in {f.name for f in dataclasses.fields(InflightStep)}
+done = torch.cuda.Event()
+done.record()
+torch.cuda.synchronize()
+def step(logits):
+    t = time.perf_counter()
+    batch = []
+    for uid in range(8):
+        r = SNNRequest(uid=uid, image=None)
+        r._t0, r.queue_s = t, 0.0
+        batch.append(r)
+    kw = dict(batch=batch, bucket=8, n=8, logits=logits, t0=t,
+              done=done if logits.is_cuda else None)
+    if has_pad:
+        kw["pad_frac"] = 0.0
+    return InflightStep(**kw)
+out = {}
+for where in ("cuda", "cpu"):
+    logits = torch.randn(8, 10, device=where)
+    rounds = []
+    for _ in range(5):
+        steps = [step(logits) for _ in range(2000)]
+        t0 = time.perf_counter()
+        for st in steps:
+            eng.finish_step(st, sink=lambda r: None)
+        rounds.append((time.perf_counter() - t0) / len(steps) * 1e6)
+    out[where] = statistics.median(rounds)
+print(json.dumps(out))
+"""
+
+
+def finish_step(trees):
+    import json
+    import os
+
+    for tree in trees or [str(ROOT)]:
+        tree = Path(tree).resolve()
+        env = dict(os.environ, PYTHONPATH=str(tree / "src"))
+        res = subprocess.run([sys.executable, "-c", _FINISH], cwd=tree,
+                             env=env, capture_output=True, text=True,
+                             timeout=300)
+        if res.returncode:
+            raise RuntimeError(f"finish probe in {tree}: {res.stderr}")
+        us = json.loads(res.stdout.strip().splitlines()[-1])
+        print(f"finish: {tree.name or tree}: finish_step "
+              f"{us['cuda']:.3f} us a batch of 8 (logits on the card), "
+              f"{us['cpu']:.3f} us (on the host)", flush=True)
+
+
 def main():
     import torch
 
@@ -1078,12 +1241,15 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(f"card: {smi}", flush=True)
+    if sys.argv[1:2] == ["finish"]:
+        finish_step(sys.argv[2:])
+        return 0
     dev = torch.device("cuda", 0)
     probes = {"linears": linears, "stamps": stamps, "snn": snn, "nce": nce,
               "conv": conv, "loops": loops, "clocks": clocks,
-              "state": state}
+              "state": state, "async": async_tier}
     if not sys.argv[1:]:
-        del probes["state"]
+        del probes["state"], probes["async"]
     for name in sys.argv[1:] or probes:
         probes[name](dev)
     return 0

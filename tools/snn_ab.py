@@ -6,7 +6,8 @@ both resets, then timed at w4, soft reset, B=8, T=4: kernel ms and the
 per-layer ``fused_conv`` + pool chain's ms), the ``fused_conv`` phase at
 the 12 geometries the served paths launch it at (kernel ms each), the
 NCE step phase (``spike_matmul`` and ``lif_step`` ms at vgg9's fc1 and
-kernel_bench's NCE geometry), then the three served SNN
+kernel_bench's NCE geometry, and the step's device and wall ms where the
+checkout's phase reports them), then the three served SNN
 paths (vgg9 ``fusion=()``, vgg9 ``fusion="auto"``, resnet18
 ``fusion="auto"``, full width, INT4, ``SNNServeEngine(max_batch=8)``):
 images/s of each of 5 rounds of 64 requests (8 batches a round, wall
@@ -86,6 +87,9 @@ rows, _ = chip_smoke.nce_step_phase(dev, gen)
 for kernel, per in rows.items():
     for name, r in per.items():
         print(f"AB {kernel} {name} kernel {r['ms']:.4f} ms", flush=True)
+        if "step_ms" in r:      # checkouts whose step packs in the kernel
+            print(f"AB NCE step {name} device {r['step_ms']:.4f} ms, wall "
+                  f"{r['step_wall_ms']:.4f} ms", flush=True)
 
 rng = np.random.default_rng(0)
 for model_name, fusion in (("vgg9", ()), ("vgg9", "auto"),
