@@ -84,6 +84,26 @@
    chosen variant and tile are printed), ``kv_attention`` at a decode
    step (also with a sliding window and a logit cap).
 
+6. olmo-1b training (``train_phase``, after the serve phases' params
+   are freed), every line beside the card's name and power limit:
+   - one ``make_train_step`` at full width and depth, bf16, W4 QAT,
+     batch 8 x 128: 1 warm and 5 timed steps, every loss and grad norm
+     finite, ms a step, tokens/s, ``max_memory_allocated``, and the
+     device-busy share of 3 profiled steps;
+   - ``Trainer`` at full width cut to 2 layers (~2.4 GB a checkpoint):
+     8 steps, a checkpoint every 4 (async, keep 1), then the same run
+     failed at step 6 by a ``FailureInjector`` and restarted by
+     ``run_with_restarts`` from the step-4 checkpoint, its losses at steps
+     4-7 within rtol 1e-3 of the uninterrupted run's;
+   - 2 steps with the spiking FFN (``SpikingConfig()``) at 2 layers;
+   - the step-8 checkpoint restored, packed to W4 (absmax scales, the
+     grid QAT trained on) and served by ``ServeEngine`` (4 requests, bf16
+     KV): 14 ``packed_qmatmul`` launches a forward, 8 greedy tokens a
+     request, first-token logits within 0.10 / 0.15 relative RMS / max of
+     the fake-quant forward of the same checkpoint, its quantizer in
+     float32 (printed beside: the bf16 fake-quant forward, not
+     asserted); the checkpoint directories are deleted.
+
 Exits non-zero on any failure and without a card.  The line before the
 last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -702,14 +722,17 @@ def nce_step_phase(dev, gen):
     return rows, launches
 
 
-def pack_lm(params, bits):
+def pack_lm(params, bits, clip_search=True):
     """Every linear of the LM packed to ``bits`` with one scale per output
     row (the port's ``quantize`` on W.T, as NeuronComputeEngine.from_float
-    packs); the dense weights are dropped as each layer is packed."""
+    packs); the dense weights are dropped as each layer is packed.
+    ``clip_search=False`` keeps each row's absmax scale, the grid QAT's
+    fake-quant trains against (the search moves a W2/W4 row's clip to
+    its MSE optimum)."""
     from repro_torch.quant.formats import PrecisionConfig
     from repro_torch.quant.ptq import quantize
 
-    pc = PrecisionConfig(bits=bits, group_size=-1)
+    pc = PrecisionConfig(bits=bits, group_size=-1, clip_search=clip_search)
     for lp in params["layers"]:
         for blk in ("attn", "mlp"):
             for lin in lp[blk].values():
@@ -1286,7 +1309,8 @@ def plain_forward(model, images):
 def profile_calls(fn, what, reps=5):
     """Where ``fn`` spends device time: torch.profiler over ``reps`` calls
     (after one warm-up call), the top kernels by device time, and the
-    device's busy share of the wall time."""
+    device's busy share of the wall time.  Returns the wall and device
+    busy us per call (busy None when the profiler saw no device time)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1307,7 +1331,7 @@ def profile_calls(fn, what, reps=5):
     busy_us = sum(r[0] for r in rows)
     if not rows:
         print("profile: no device time reported (not measured)", flush=True)
-        return
+        return wall_us / reps, None
     print(f"profile of {reps} {what}s: wall {wall_us / reps:.1f} us per "
           f"{what}, device busy {busy_us / reps:.1f} us "
           f"({100 * busy_us / wall_us:.1f}% of wall, the profiler's own "
@@ -1316,6 +1340,7 @@ def profile_calls(fn, what, reps=5):
     for dev_us, count, key in rows[:12]:
         print(f"  {dev_us / reps:9.1f}  {count // reps:4d}  {key[:90]}",
               flush=True)
+    return wall_us / reps, busy_us / reps
 
 
 def profile_batch(model, x, reps=5):
@@ -1602,6 +1627,259 @@ def async_serve_phase(dev, card):
     return {k: v for k, v in launches.items() if v}
 
 
+def _lm_batch(cfg, batch, seq, step, dev):
+    import torch
+
+    from repro_torch.data import synthetic
+
+    b = synthetic.lm_batch(cfg.vocab, batch, seq, seed=0, step=step)
+    return {k: torch.from_numpy(v).to(dev, torch.int64)
+            for k, v in b.items()}
+
+
+def train_phase(dev, card):
+    """olmo-1b training on the card, then the trained weights served
+    through ``packed_qmatmul``:
+
+    1. one ``make_train_step`` at full width and depth (16 layers, bf16,
+       W4 QAT), batch 8 x 128 tokens: 1 warm and 5 timed steps (loss and
+       grad norm finite), tokens/s, peak memory, a profile of 3 more
+       steps for the device-busy share, and the AdamW update's time
+       alone;
+    2. ``Trainer`` at full width cut to 2 layers, 8 steps, a checkpoint
+       every 4 (keep 1, async), then again with a ``FailureInjector`` at
+       step 6 under ``run_with_restarts``: the restarted run resumes from
+       step 4 and its losses at steps 4-7 agree with the uninterrupted
+       run's within rtol 1e-3 (the measured difference is printed);
+    3. 2 steps of the 2-layer model with ``SpikingConfig()``;
+    4. the uninterrupted run's step-8 checkpoint restored, every linear
+       packed to W4 with ``pack_lm`` on the absmax grid the QAT trained
+       against (no clip search), 4 requests served by ``ServeEngine``
+       (8 slots, bf16 KV): ``packed_qmatmul`` launched 14 times a forward,
+       8 greedy tokens a request, and each request's first-token logits
+       within 0.10 / 0.15 relative RMS / max of the fake-quant forward of
+       the same checkpoint with its quantizer in float32 (the grid
+       ``quantize`` packs); beside it, not asserted, the same measures
+       against the bf16 fake-quant forward QAT trains with, whose
+       ``w / scale`` rounds to bf16 before the round and so flips codes.
+
+    Returns the serve run's launches."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SpikingConfig
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.distributed.fault_tolerance import (
+        FailureInjector,
+        run_with_restarts,
+    )
+    from repro_torch.kernels.kv_attention import ops as kv_ops
+    from repro_torch.kernels.packed_qmatmul import ops as qmm_ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer
+    from repro_torch.quant.formats import PrecisionConfig
+    from repro_torch.quant.qat import fake_quant
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    from repro_torch.tree import leaves, unflatten_like
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("olmo-1b"),
+                              precision=PrecisionConfig(bits=4,
+                                                        group_size=-1))
+    bsz, seq = 8, 128
+    ocfg = TrainConfig().opt
+
+    # 1. the full-size step
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.init(0, cfg, device=dev)
+    state = opt.init(params)
+    step = make_train_step(cfg, ocfg)
+    metrics = [step(params, state, _lm_batch(cfg, bsz, seq, 0, dev))[2]]
+    batches = [_lm_batch(cfg, bsz, seq, i, dev) for i in range(1, 6)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        metrics.append(step(params, state, b)[2])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / len(batches)
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    if not np.isfinite(losses + norms).all():
+        raise AssertionError(f"olmo train: losses {losses}, grad norms "
+                             f"{norms}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"olmo-1b train step, full width and depth ({cfg.n_layers} "
+          f"layers, d {cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"bf16, W4 QAT, AdamW), batch {bsz} x {seq} tokens [{card}]: "
+          f"losses (warm step first) "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; grad norms "
+          f"{', '.join(f'{x:.4f}' for x in norms)}; {wall * 1e3:.1f} ms a "
+          f"step over {len(batches)} steps, {bsz * seq / wall:.1f} tokens/s, "
+          f"peak memory {peak / 2 ** 30:.2f} GiB "
+          f"(max_memory_allocated)", flush=True)
+    batch = batches[0]
+    wall_us, busy_us = profile_calls(
+        lambda: step(params, state, batch), "train step", reps=3)
+    if busy_us is not None:
+        print(f"olmo-1b train step device busy {100 * busy_us / wall_us:.1f}"
+              f"% of {wall_us / 1e3:.1f} ms wall (profiled) [{card}]",
+              flush=True)
+    # the AdamW update alone, on gradients of the params' shapes
+    grads = [torch.randn_like(p) * 1e-3 for p in leaves(params)]
+    grads = unflatten_like(params, grads)
+    upd_ms = _median_ms(lambda: opt.update(grads, state, params, ocfg),
+                        iters=2, reps=3)
+    print(f"olmo-1b AdamW update alone: {upd_ms:.1f} ms a step "
+          f"({100 * upd_ms / (wall * 1e3):.0f}% of the step's wall) "
+          f"[{card}]", flush=True)
+    del params, state, step, metrics, batches, batch, grads
+    torch.cuda.empty_cache()
+
+    # 2. checkpoint and restart at 2 layers
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    root = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free = shutil.disk_usage(root).free
+    quiet = lambda *_: None  # noqa: E731
+
+    def tcfg(name):
+        return TrainConfig(steps=8, batch=bsz, seq=seq, ckpt_dir=str(
+            root / name), ckpt_every=4, ckpt_keep=1, log_every=100,
+            opt=opt.OptConfig(warmup_steps=2, total_steps=8))
+
+    t0 = time.perf_counter()
+    ref = Trainer(cfg2, tcfg("ref"), log=quiet, device=dev).run()
+    t_ref = time.perf_counter() - t0
+    inj = FailureInjector(fail_at_steps=(6,))
+    logs, attempts = [], []
+
+    def attempt(a):
+        attempts.append(a)
+        tr = Trainer(cfg2, tcfg("restart"), injector=inj, log=logs.append,
+                     device=dev)
+        try:
+            return tr.run()
+        finally:
+            tr.ckpt.wait()   # the failed attempt's step-4 write commits
+
+    t0 = time.perf_counter()
+    out = run_with_restarts(attempt, max_restarts=1)
+    t_restart = time.perf_counter() - t0
+    logs = [line for line in logs if "restored" in line]
+    got, want = np.array(out["losses"]), np.array(ref["losses"][4:])
+    rel = float(np.max(np.abs(got - want) / np.abs(want))) \
+        if got.shape == want.shape else float("inf")
+    print(f"olmo-1b Trainer, full width cut to 2 layers, 8 steps of {bsz} x "
+          f"{seq} tokens, checkpoint every 4 (async, keep 1, ~"
+          f"{sum(f.stat().st_size for f in (root / 'ref').rglob('*.npy')) / 2 ** 30:.2f}"
+          f" GiB each) [{card}]: losses {', '.join(f'{x:.4f}' for x in ref['losses'])}"
+          f" in {t_ref:.1f} s; the run failed at step 6 and restarted "
+          f"({attempts}, {logs}) in {t_restart:.1f} s: steps 4-7 "
+          f"{', '.join(f'{x:.4f}' for x in got)}, max relative difference "
+          f"{rel:.3g} (limit 1e-3; {free / 2 ** 30:.0f} GiB free on disk "
+          f"before)", flush=True)
+    if (attempts != [0, 1] or logs != ["[trainer] restored checkpoint "
+                                       "step=4"] or not rel <= 1e-3):
+        raise AssertionError(f"olmo restart: attempts {attempts}, logs "
+                             f"{logs}, losses {out['losses']} against "
+                             f"{ref['losses'][4:]}")
+
+    # 3. the spiking FFN at 2 layers
+    cfg_s = dataclasses.replace(cfg2, spiking=SpikingConfig())
+    params = transformer.init(1, cfg_s, device=dev)
+    state = opt.init(params)
+    step = make_train_step(cfg_s, ocfg)
+    t0 = time.perf_counter()
+    spk = [step(params, state, _lm_batch(cfg_s, bsz, seq, i, dev))[2]
+           for i in range(2)]
+    spk = [(float(m["loss"]), float(m["grad_norm"])) for m in spk]
+    torch.cuda.synchronize()
+    if not np.isfinite(spk).all():
+        raise AssertionError(f"olmo spiking FFN: (loss, grad norm) {spk}")
+    print(f"olmo-1b spiking FFN (T=4, leak shift 3, threshold 1.0), 2 "
+          f"layers, 2 steps [{card}]: (loss, grad norm) "
+          f"{', '.join(f'({a:.4f}, {b:.4f})' for a, b in spk)} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    del params, state, step
+    torch.cuda.empty_cache()
+
+    # 4. the trained checkpoint served through packed_qmatmul
+    ckpt = CheckpointManager(root / "ref")
+    like = {"params": transformer.init(0, cfg2, device=dev)}
+    dense = ckpt.restore(8, like)["params"]
+    with torch.no_grad():
+        packed = pack_lm(ckpt.restore(8, like)["params"], 4,
+                         clip_search=False)
+    del like
+    shutil.rmtree(root)
+    rng = np.random.default_rng(1)
+    reqs = [Request(uid=i, prompt=rng.integers(
+        0, cfg2.vocab, int(rng.integers(16, 65))).astype(np.int32),
+        max_new_tokens=8) for i in range(4)]
+    eng = ServeEngine(cfg2, packed, EngineConfig(slots=8, max_len=256,
+                                                 keep_logits=True),
+                      device=dev)
+    qmm_ops.qmatmul.launches = 0
+    kv_ops.quant_kv_decode_attention.launches = 0
+    for r in reqs:
+        eng.add_request(r)
+    with torch.inference_mode():
+        stats = eng.run_until_done()
+    launches = {"packed_qmatmul": qmm_ops.qmatmul.launches,
+                "kv_attention": kv_ops.quant_kv_decode_attention.launches}
+    per_fwd = 7 * cfg2.n_layers
+    want = {"packed_qmatmul": per_fwd * (len(reqs) + stats["decode_steps"]),
+            "kv_attention": 0}
+    if (launches != want or stats["incomplete"]
+            or any(len(r.output) != 8 for r in reqs)):
+        raise AssertionError(f"olmo train -> serve: launches {launches} "
+                             f"(expected {want}), stats {stats}, outputs "
+                             f"{[r.output for r in reqs]}")
+    # the fake-quant forward with its quantizer in float32 (the grid
+    # quantize packs): each linear's W4 weights computed once
+    pc = cfg2.precision
+    grid = {**dense, "layers": [
+        {**lp, **{blk: {n: {**lin, "w": fake_quant(
+            lin["w"].float().T, pc).T.to(lin["w"].dtype)}
+            for n, lin in lp[blk].items()} for blk in ("attn", "mlp")}}
+        for lp in dense["layers"]]}
+    cfg_dense = dataclasses.replace(cfg2, precision=PrecisionConfig(bits=16))
+    check = LogitCheck("olmo train -> serve", 0.10, 0.15)
+    qat = LogitCheck("olmo train -> serve against bf16 QAT", None, None)
+    with torch.no_grad():
+        for r in reqs:
+            toks = torch.as_tensor(r.prompt[None], dtype=torch.int64,
+                                   device=dev)
+            ref_logits, _ = transformer.prefill(grid, cfg_dense, toks)
+            check.add(r.logits[0], ref_logits[0].cpu().numpy(),
+                      f"request {r.uid}")
+            ref_logits, _ = transformer.prefill(dense, cfg2, toks)
+            qat.add(r.logits[0], ref_logits[0].cpu().numpy(),
+                    f"request {r.uid}")
+    print(f"olmo-1b trained checkpoint (step 8) packed to W4, served "
+          f"(bf16 KV, 8 slots) [{card}]: 4 requests of "
+          f"{', '.join(str(len(r.prompt)) for r in reqs)} prompt tokens, "
+          f"{stats['generated_tokens']} greedy tokens in "
+          f"{stats['decode_steps']} decode steps, packed_qmatmul launches "
+          f"{launches['packed_qmatmul']} ({per_fwd} a forward); first-token "
+          f"logits against the fake-quant forward of the same checkpoint, "
+          f"its quantizer in float32: {check.summary()}", flush=True)
+    met = qat.rms <= 0.10 and qat.max <= 0.15
+    print(f"  against the bf16 fake-quant forward QAT trains with (its "
+          f"w / scale rounds to bf16 before the round, which flips codes; "
+          f"not asserted, 0.10 / 0.15 {'met' if met else 'MISSED'}): "
+          f"{qat.summary()} [{card}]", flush=True)
+    print(f"train phase: {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return {k: v for k, v in launches.items() if v}
+
+
 def main() -> int:
     import torch
 
@@ -1697,6 +1975,9 @@ def main() -> int:
             "serve prefills gemv", "serve prefills mma"] * 16},
         "olmo int4-kv prefill": {
             "packed_qmatmul": ["prefill layer m4096"] * 16},
+        # the trained 2-layer checkpoint served: its prefills and decode
+        # steps counted together, ms per decode step
+        "olmo train → serve": {"packed_qmatmul": ["decode layer"] * 2},
     }
 
     def main_names(kernel):
@@ -1742,6 +2023,9 @@ def main() -> int:
         # the prefills' launches, counted in the phase, apart
         runs[f"{path} prefill"] = pre
         runs[path] = {k: v - pre.get(k, 0) for k, v in launches.items()}
+    del params
+    torch.cuda.empty_cache()
+    runs["olmo train → serve"] = train_phase(dev, smi)
     print("kernel record: ms, plain_ms, library_ms and bound_ms are device "
           "time per call (torch.profiler), summed over the distinct "
           "geometries the main paths launch the kernel at (one call each; "
@@ -1752,7 +2036,8 @@ def main() -> int:
           "requests in 2 batches each; the async vgg9 path, 128 requests; "
           "the NCE step path's unfused rollouts, whose lif_step row times "
           "the packed entry they launch; the two olmo-1b runs, their "
-          "prefills counted apart); "
+          "prefills counted apart; the trained 2-layer olmo served, its "
+          "prefills and decode steps together); "
           "paths gives each path's launches and its kernel ms per B=8 "
           "forward (NCE: per step of each geometry; olmo: per decode step, "
           "per INT4-KV prefill, and over the serve phase's 16 prefills)",

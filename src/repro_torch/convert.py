@@ -14,6 +14,8 @@ LM param tree, whose ``layers`` are stacked along a leading layer axis
 (as ``jax.lax.scan`` wants them), into the port's list of per-layer
 dicts; a stacked packed linear (data ``(L, n, kw)``, scale ``(L, n, g)``,
 per-layer logical ``shape``) splits into one tensor per layer.
+:func:`lm_params_to_numpy` is its inverse for dense trees (params,
+gradients, optimizer moments): per-layer list back to stacked numpy.
 """
 
 from __future__ import annotations
@@ -93,3 +95,34 @@ def _first_leaf(tree):
     if isinstance(tree, dict):
         return _first_leaf(next(iter(tree.values())))
     return np.asarray(tree)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:      # numpy has no bfloat16; exact
+        t = t.to(torch.float32)
+    return t.detach().cpu().numpy()
+
+
+def _stack_layers(layers):
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack_layers([lp[k] for lp in layers]) for k in first}
+    if not isinstance(first, torch.Tensor):
+        raise TypeError(f"lm_params_to_numpy: {type(first).__name__} "
+                        f"leaf (dense tensors only)")
+    return np.stack([_to_numpy(t) for t in layers])
+
+
+def lm_params_to_numpy(params):
+    """The port's LM tree (params, gradients or AdamW moments; ``layers``
+    a list of per-layer dicts of dense tensors) -> JAX's layout: numpy
+    leaves, ``layers`` stacked along a leading layer axis.  bfloat16
+    leaves come out as float32 (exact; numpy has no bfloat16)."""
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        return _to_numpy(tree)
+
+    out = {k: conv(v) for k, v in params.items() if k != "layers"}
+    out["layers"] = _stack_layers(params["layers"])
+    return out

@@ -1,9 +1,10 @@
-"""Model registry: uniform init / prefill / decode per family.
+"""Model registry: uniform init / loss / prefill / decode per family.
 
 Port of ``repro.models.api`` for the decoder-only families the port has
-(dense).  The audio family and the families ``transformer`` leaves out
-(MoE, SSM, hybrid, VLM) raise ``NotImplementedError`` here, as does the
-training loss.
+(dense, with QAT fake-quant, the spiking FFN and remat).  ``loss_fn`` is
+differentiable with ``torch.autograd``.  The audio family and the
+families ``transformer`` leaves out (MoE, SSM, hybrid, VLM) raise
+``NotImplementedError`` here.
 """
 
 from __future__ import annotations

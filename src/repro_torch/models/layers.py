@@ -1,11 +1,16 @@
-"""Primitive layers: norms, rotary, quantized linears, attention, FFN.
+"""Primitive layers: norms, rotary, quantized linears, attention, FFN and
+the spiking FFN.
 
 Port of ``repro.models.layers``.  Params are plain dicts of tensors, and
 every linear routes through :func:`linear`, the L-SPINE multi-precision
 datapath: dense, fake-quant (QAT), or packed low-bit weights through the
 ``packed_qmatmul`` kernel (kernels/csrc/packed_qmatmul.cu on a CUDA
-tensor).  Attention, norms and rotary are plain PyTorch, as the JAX
-package leaves them to XLA.
+tensor).  Attention, norms, rotary and the spiking FFN's LIF rollout
+are plain PyTorch, as the JAX package leaves them to XLA; every function
+here is differentiable (the fake-quant's straight-through estimator and
+the LIF's surrogate spike are ``torch.autograd.Function``s).  Only the
+context-parallel attention hint (:func:`set_attention_cp`) is not
+ported.
 
 Numerics follow the JAX package: norms and rotary compute in float32 and
 cast back; attention products take their (bfloat16) operands up to
@@ -318,8 +323,30 @@ def ffn_apply(p, x: torch.Tensor, kind: str, act: str, pc=None,
     return linear(p["wo"], h, pc, mode)
 
 
-def spiking_ffn_apply(p, x, act: str, *, timesteps: int, leak_shift: int,
-                      threshold: float, pc=None, mode="fake"):
-    """The spiking FFN of the JAX package is not ported yet."""
-    raise NotImplementedError(
-        "spiking_ffn_apply: the spiking FFN is not ported to repro_torch yet")
+# ---------------------------------------------------------------------------
+# spiking FFN (L-SPINE execution of the MLP block, beyond the paper for LMs)
+# ---------------------------------------------------------------------------
+
+
+def spiking_ffn_apply(p, x: torch.Tensor, act: str, *, timesteps: int,
+                      leak_shift: int, threshold: float, pc=None,
+                      mode="fake") -> torch.Tensor:
+    """FFN whose hidden activation is a LIF population run for T
+    timesteps on the direct-encoded current; the output integrates the
+    hidden spikes' rate.
+
+    Rate-coded twin of the dense FFN: the forward uses core/lif.py's
+    shift-add leak dynamics (float twin, fast-sigmoid surrogate gradient
+    for training).  ``act`` is unused, as in the JAX package; so is a GLU
+    FFN's ``wg``.
+    """
+    from repro_torch.core.lif import LIFConfig, lif_rollout_float
+
+    cfg = LIFConfig(leak_shift=leak_shift, threshold=threshold,
+                    timesteps=timesteps)
+    cur = linear(p["wi"], x, pc, mode)                    # (..., d_ff)
+    cur_t = cur.expand(timesteps, *cur.shape)
+    v0 = torch.zeros_like(cur)
+    _, s_t = lif_rollout_float(v0, cur_t, cfg)            # (T, ..., d_ff)
+    rate = torch.mean(s_t, dim=0)                         # firing rate
+    return linear(p["wo"], rate.to(x.dtype), pc, mode)

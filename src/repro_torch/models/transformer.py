@@ -10,13 +10,23 @@ words and scales when ``kv_cache_bits != 16``), and decode steps write
 into it in place (the JAX version returns a new cache; in place saves a
 copy of the whole cache per step).
 
+The spiking FFN (``cfg.spiking``) replaces the MLP where it is set, and
+``cfg.remat`` recomputes activations in the backward pass of
+:func:`forward_hidden`: ``"full"`` checkpoints each layer, ``"dots"``
+keeps the matmul outputs of each layer (``aten.mm``/``bmm``/``addmm``,
+through ``torch.utils.checkpoint``'s selective checkpointing) and
+recomputes the rest, in place of ``jax.checkpoint`` and its
+``dots_with_no_batch_dims_saveable`` policy.
+
 Left out, each raising ``NotImplementedError`` where it would be needed:
-MoE, SSM and hybrid blocks, the vision prefix, the spiking FFN, remat and
-the training loss.
+MoE, SSM and hybrid blocks and the vision prefix.
 
 Forward modes:
-  forward_hidden  full sequence (prefill), chunked flash-style attention
-                  for long sequences
+  forward_hidden  full sequence (train / prefill), chunked flash-style
+                  attention for long sequences
+  loss_fn         forward + sequence-chunked cross-entropy; each chunk's
+                  (B, chunk, vocab) logits are recomputed in the backward
+                  pass instead of being saved
   prefill         forward + KV-cache emission, last-token logits
   decode_step     one token per slot against the cache, ragged (per-slot
                   lengths, the serving engine) or uniform
@@ -24,10 +34,15 @@ Forward modes:
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -49,8 +64,6 @@ def check_supported(cfg: ArchConfig) -> None:
         (cfg.family == "ssm", "SSM (mamba2) blocks"),
         (cfg.hybrid_parallel_ssm, "hybrid attention + SSM layers"),
         (bool(cfg.vision_prefix_len), "the vision prefix (VLM family)"),
-        (cfg.spiking is not None, "the spiking FFN"),
-        (cfg.remat != "none", "remat (activation checkpointing)"),
     ]
     for hit, what in missing:
         if hit:
@@ -212,8 +225,13 @@ def _attn_block(lp, cfg: ArchConfig, x, *, window: int, q_offset=0, cache_kv=Non
 
 
 def _mlp_block(lp, cfg: ArchConfig, x):
-    return L.ffn_apply(lp, x, cfg.ffn, cfg.act, cfg.precision,
-                       cfg.quant_mode)
+    pc, mode = cfg.precision, cfg.quant_mode
+    if cfg.spiking is not None:
+        return L.spiking_ffn_apply(
+            lp, x, cfg.act, timesteps=cfg.spiking.timesteps,
+            leak_shift=cfg.spiking.leak_shift,
+            threshold=cfg.spiking.threshold, pc=pc, mode=mode)
+    return L.ffn_apply(lp, x, cfg.ffn, cfg.act, pc, mode)
 
 
 def _residual_tail(lp, cfg: ArchConfig, x, a):
@@ -238,6 +256,18 @@ def _embed_tokens(params, cfg: ArchConfig, tokens):
     return x
 
 
+def _block_full(lp, cfg: ArchConfig, x, window: int):
+    """One full-sequence layer (train / prefill path)."""
+    h = L.apply_norm(cfg.norm, lp["ln1"], x)
+    a, _ = _attn_block(lp["attn"], cfg, h, window=window)
+    return _residual_tail(lp, cfg, x, a)
+
+
+#: what ``remat="dots"`` keeps for the backward pass: the matmul outputs
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default]
+
+
 def forward_hidden(params, cfg: ArchConfig, tokens, vision_embeds=None):
     """tokens: (B, S) -> (hidden (B, S, d), aux_loss 0)."""
     check_supported(cfg)
@@ -245,10 +275,16 @@ def forward_hidden(params, cfg: ArchConfig, tokens, vision_embeds=None):
         raise NotImplementedError("vision_embeds: the VLM family is not "
                                   "ported to repro_torch yet")
     x = _embed_tokens(params, cfg, tokens)
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _DOTS)
     for lp, window in zip(params["layers"], window_schedule(cfg)):
-        h = L.apply_norm(cfg.norm, lp["ln1"], x)
-        a, _ = _attn_block(lp["attn"], cfg, h, window=int(window))
-        x = _residual_tail(lp, cfg, x, a)
+        if cfg.remat == "none":
+            x = _block_full(lp, cfg, x, int(window))
+        else:
+            x = checkpoint(_block_full, lp, cfg, x, int(window),
+                           use_reentrant=False, **kw)
     return L.apply_norm(cfg.norm, params["final_norm"], x), 0.0
 
 
@@ -260,9 +296,39 @@ def _logits_chunk(params, cfg: ArchConfig, h):
     return L.softcap(logits, cfg.final_logit_softcap)
 
 
+def _chunk_loss(params, cfg: ArchConfig, hb, lb):
+    """Summed cross-entropy of one sequence chunk and its count of
+    unmasked labels."""
+    logits = _logits_chunk(params, cfg, hb)
+    mask = (lb >= 0).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1,
+                       torch.clamp(lb, min=0).to(torch.int64)[..., None])
+    return torch.sum((lse - tgt[..., 0]) * mask), torch.sum(mask)
+
+
 def loss_fn(params, cfg: ArchConfig, batch, *, ce_chunk: int = 512):
-    raise NotImplementedError("loss_fn: training is not ported to "
-                              "repro_torch yet")
+    """Sequence-chunked cross-entropy.  batch: tokens (B, S), labels
+    (B, S) with -1 = masked.  ``S`` splits into ``max(1, S // ce_chunk)``
+    chunks, one fewer until the count divides ``S`` (JAX's rule); each
+    chunk's logits are recomputed in the backward pass
+    (``torch.utils.checkpoint`` in place of ``jax.checkpoint``)."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    h, aux = forward_hidden(params, cfg, tokens,
+                            batch.get("vision_embeds"))
+    s_len = h.shape[1]
+    nc = max(1, s_len // ce_chunk)
+    while s_len % nc:             # nc must divide S
+        nc -= 1
+    cs = s_len // nc
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(nc):
+        t, n = checkpoint(_chunk_loss, params, cfg, h[:, c * cs:(c + 1) * cs],
+                          labels[:, c * cs:(c + 1) * cs],
+                          use_reentrant=False)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp_min(cnt, 1.0) + aux
 
 
 # ---------------------------------------------------------------------------

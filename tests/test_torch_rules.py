@@ -109,6 +109,29 @@ def test_lm_entry_points_without_device_raise_without_cuda(monkeypatch):
             call()
 
 
+def test_train_entry_points_without_device_raise_without_cuda(
+        monkeypatch, tmp_path):
+    """The Trainer and ``python -m repro_torch.launch.train`` run on the
+    card unless asked for the CPU; the launcher raises before it touches
+    the checkpoint directory."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = get_config("olmo-1b", smoke=True)
+    ck = tmp_path / "ck"
+    ck.mkdir()
+    (ck / "keep").write_text("")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: Trainer(cfg, TrainConfig(ckpt_dir=str(ck))),
+                 lambda: train.main(["--arch", "olmo-1b", "--smoke",
+                                     "--steps", "1", "--ckpt-dir",
+                                     str(ck)])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert (ck / "keep").exists()
+
+
 def test_wrappers_refuse_devices_they_have_no_kernel_for():
     """Dispatch is by the tensor's device: CPU takes the plain version,
     CUDA the kernel, anything else raises (no silent plain fallback)."""
