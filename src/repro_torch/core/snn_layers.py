@@ -1,12 +1,18 @@
 """Spiking layers: the per-layer primitives the graph executors lower onto.
 
-Port of the parts of ``repro.core.snn_layers`` the packaged integer
-forward runs: the float stem conv (:func:`spiking_conv_apply`), the
-integer twins that run every post-stem layer through the fused kernels
+Port of ``repro.core.snn_layers``.  The float/BPTT twins
+(:func:`spiking_conv_apply`, :func:`spiking_dense_apply`, with QAT
+fake-quant when the precision quantizes, the average pool
+:func:`avgpool_t`) train the model and run the integer path's stem; the
+integer twins run every post-stem layer through the fused kernels
 (:func:`spiking_conv_int_apply`, :func:`spiking_dense_int_apply`, and
-:func:`spiking_conv_group_int_apply` for a fusion group), the binary max
-pool and the float readout, plus the weight packing and
-threshold fold that ``deploy()`` shares with the per-call path.
+:func:`spiking_conv_group_int_apply` for a fusion group) between binary
+max pools; the float readout ends both.  The weight packing and
+threshold fold are shared by ``deploy()`` and the per-call path.
+
+The float convolution runs in full float32 forward and backward (cuDNN
+with TF32 off, deterministic algorithms), so a spike at threshold does
+not flip with the card's arithmetic.
 
 Layout convention: time axis first, activations (T, B, ...) NHWC.
 """
@@ -59,6 +65,15 @@ def pack_conv_weights(params, pc: PrecisionConfig):
     return quantize_conv(w, pc)
 
 
+def _maybe_fq(w: torch.Tensor, pc: Optional[PrecisionConfig]
+              ) -> torch.Tensor:
+    """QAT fake-quant of a dense (in, out) weight when ``pc`` quantizes:
+    its groups run along the last axis, so the contraction goes last."""
+    if pc is not None and pc.quantized:
+        return fake_quant(w.transpose(-1, -2), pc).transpose(-1, -2)
+    return w
+
+
 # ---------------------------------------------------------------------------
 # init (shapes and scales of repro's conv_init / dense_init)
 # ---------------------------------------------------------------------------
@@ -79,21 +94,54 @@ def conv_init(gen: torch.Generator, c_in: int, c_out: int, k: int = 3,
 
 
 # ---------------------------------------------------------------------------
-# float stem conv
+# float/BPTT twins
 # ---------------------------------------------------------------------------
+
+def _exact_cudnn():
+    """cuDNN in full float32 (no TF32, on by default for convolutions)
+    with deterministic algorithms, the same for every batch size."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=True, allow_tf32=False)
+
+
+class _ExactConv2d(torch.autograd.Function):
+    """``F.conv2d`` (NCHW, no padding) whose backward runs under the same
+    cuDNN flags as its forward.  Autograd runs a backward after the
+    forward's context has closed, so a plain ``F.conv2d`` under
+    :func:`_exact_cudnn` would take its input and weight gradients in
+    PyTorch's defaults (TF32 on)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor, stride: int):
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        with _exact_cudnn():
+            return F.conv2d(x, w, stride=stride)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        with _exact_cudnn():
+            if ctx.needs_input_grad[0]:
+                gx = torch.nn.grad.conv2d_input(x.shape, w, g,
+                                                stride=ctx.stride)
+            if ctx.needs_input_grad[1]:
+                gw = torch.nn.grad.conv2d_weight(x, w.shape, g,
+                                                 stride=ctx.stride)
+        return gx, gw, None
+
 
 def _conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
             padding="SAME") -> torch.Tensor:
     """NHWC x HWIO float convolution with XLA's SAME/VALID pads, in full
-    float32: cuDNN's TF32 (on by default for convolutions) is switched
-    off for the call, or stem spikes would flip at threshold."""
+    float32 forward and backward (:class:`_ExactConv2d`), or spikes
+    would flip at threshold."""
     kh, kw = w.shape[0], w.shape[1]
     (plh, phh), (plw, phw) = conv_pads(x.shape[1], x.shape[2], kh, kw,
                                        stride, padding)
     xn = F.pad(x.permute(0, 3, 1, 2), (plw, phw, plh, phh))
-    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
-                                    deterministic=True, allow_tf32=False):
-        y = F.conv2d(xn, w.permute(3, 2, 0, 1), stride=stride)
+    y = _ExactConv2d.apply(xn, w.permute(3, 2, 0, 1), stride)
     return y.permute(0, 2, 3, 1)
 
 
@@ -123,6 +171,34 @@ def spiking_conv_apply(
                      device=i_syn_t.device)
     _, s_t = lif_rollout_float(v0, i_syn_t, lif)
     return s_t
+
+
+def spiking_dense_apply(
+    params,
+    spikes_t: torch.Tensor,     # (T, B, d_in) {0,1} spikes or currents
+    lif: LIFConfig,
+    pc: Optional[PrecisionConfig] = None,
+) -> torch.Tensor:
+    """Synaptic accumulation (fake-quantized weights when ``pc``
+    quantizes) + float LIF rollout.  Returns (T, B, d_out) {0,1} float."""
+    w = _maybe_fq(params["w"], pc)
+    i_syn_t = torch.einsum("tbi,io->tbo", spikes_t.to(w.dtype), w)
+    if "g" in params:  # threshold-balancing gain
+        i_syn_t = i_syn_t * params["g"]
+    v0 = torch.zeros(i_syn_t.shape[1:], dtype=i_syn_t.dtype,
+                     device=i_syn_t.device)
+    _, s_t = lif_rollout_float(v0, i_syn_t, lif)
+    return s_t
+
+
+def avgpool_t(spikes_t: torch.Tensor, window: int = 2) -> torch.Tensor:
+    """Non-overlapping VALID average pool per timestep (keeps spike
+    statistics), in float32 as ``repro`` computes it."""
+    t, b, h, w, c = spikes_t.shape
+    ho, wo = h // window, w // window
+    x = spikes_t[:, :, :ho * window, :wo * window].to(torch.float32)
+    x = x.reshape(t, b, ho, window, wo, window, c)
+    return torch.sum(x, dim=(3, 5)) / (window * window)
 
 
 # ---------------------------------------------------------------------------

@@ -223,12 +223,14 @@ def load(path: str, device="cuda") -> DeployedModel:
     return DeployedModel(cfg=cfg, float_params=float_params, layers=layers)
 
 
+@torch.no_grad()
 def deploy(params, cfg, device="cuda") -> DeployedModel:
     """Pack a float SNN checkpoint for integer deployment, in one pass over
     the model graph: every packable spec (post-stem convs, fc1) is
     quantized with its gain folded in, packed, and gets its per-channel
     integer threshold; the stem and head stay float.  ``params`` (torch
-    tensors on any device) are moved to ``device`` first."""
+    tensors on any device, trained leaves that require grad included) are
+    moved to ``device`` first; packing runs without autograd."""
     device = resolve_device(device)
     if not cfg.int_path:
         raise ValueError(

@@ -1,7 +1,11 @@
 """Declarative model graph: define the SNN once, lower it with executors.
 
-Port of ``repro.graph`` for the integer serving path (vgg and resnet18
-families, fusion groups).
+Port of ``repro.graph``: one :class:`ModelGraph` per model family (vgg
+and resnet18), lowered to the float/BPTT training forward
+(:class:`FloatExecutor`), the per-call integer path
+(:class:`IntExecutor`) and packaged serving (:class:`PackagedExecutor`);
+parameter init, threshold calibration, fusion groups and MAC counting
+are traversals of the same graph.
 """
 
 from repro_torch.graph.build import (  # noqa: F401
@@ -28,7 +32,11 @@ from repro_torch.graph.fusion import (  # noqa: F401
     plan_fusion_groups,
     validate_group,
 )
-from repro_torch.graph.passes import graph_init  # noqa: F401
+from repro_torch.graph.passes import (  # noqa: F401
+    CalibratingExecutor,
+    graph_calibrate,
+    graph_init,
+)
 from repro_torch.graph.spec import (  # noqa: F401
     Conv,
     Dense,

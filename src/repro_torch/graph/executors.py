@@ -1,18 +1,22 @@
 """Pluggable executors: lower one :class:`ModelGraph` to a forward pass.
 
-Port of ``repro.graph.executors`` for the integer serving path:
+Port of ``repro.graph.executors``:
 
-``FloatExecutor``     the float twin; in this port only its conv is used,
-                      as the direct-encoded stem of the integer path (the
-                      float/BPTT pools, merge and dense layers are not
-                      ported).
-``IntExecutor``       per-call integer path: every post-stem layer runs
-                      the fused kernels, quantizing the float params on
-                      each call; binary max pools, spike-OR residual
-                      merge, and each fusion group in one ``fused_group``
-                      launch.
+``FloatExecutor``     float/BPTT twin: fake-quant (QAT) conv/dense when
+                      the precision quantizes, average pools, the
+                      rate-preserving residual merge ``(h + sc) / 2``.
+                      The training path; it lowers layer by layer, so
+                      fusion groups leave it unchanged.
+``IntExecutor``       per-call integer path: the float stem, then every
+                      post-stem layer through the fused kernels,
+                      quantizing the float params on each call; binary
+                      max pools, spike-OR residual merge, and each fusion
+                      group in one ``fused_group`` launch.
 ``PackagedExecutor``  the same lowering fed from a ``DeployedModel``:
                       pre-packed weights and folded thresholds.
+
+``CalibratingExecutor`` (graph/passes.py) is a fourth traversal: the
+float forward with a per-layer gain hook.
 
 Every executor records a ``trace`` of ``(kind, name, stride)`` rows in
 execution order, the same rows ``repro``'s executors record, grouped or
@@ -26,11 +30,13 @@ from typing import List, Optional, Tuple
 import torch
 
 from repro_torch.core.snn_layers import (
+    avgpool_t,
     maxpool_t,
     readout_apply,
     spiking_conv_apply,
     spiking_conv_group_int_apply,
     spiking_conv_int_apply,
+    spiking_dense_apply,
     spiking_dense_int_apply,
 )
 from repro_torch.graph import fusion as _fusion
@@ -58,6 +64,10 @@ class Executor:
 
     kind = "base"
 
+    #: whether this lowering runs :class:`FusionGroup` annotations as one
+    #: launch; the float lowerings run every group member by member
+    supports_groups = False
+
     def __init__(self, graph: ModelGraph, params):
         self.graph = graph
         self.cfg = graph.cfg
@@ -83,7 +93,8 @@ class Executor:
 
     def residual(self, spec: Residual, x: torch.Tensor) -> torch.Tensor:
         self.trace.append(("residual", spec.name, spec.stride))
-        group = _fusion.body_group(self.graph, spec)
+        group = _fusion.body_group(self.graph, spec) \
+            if (self.graph.groups and self.supports_groups) else None
         if group is not None:
             # the body chain in one fused launch; the shortcut still reads
             # the pre-body plane, so only the body joins the group
@@ -96,8 +107,9 @@ class Executor:
         return self._merge(h, sc)
 
     def fused_group(self, group, specs, x: torch.Tensor) -> torch.Tensor:
-        """Lower a fusion group's whole member chain in one kernel launch
-        (the integer lowerings)."""
+        """Lower a fusion group's whole member chain in one kernel launch.
+        Only lowerings that ``supports_groups`` implement it; ``run_graph``
+        and ``residual`` route nothing here otherwise."""
         raise NotImplementedError(
             f"{type(self).__name__} does not lower fusion groups")
 
@@ -108,7 +120,9 @@ class Executor:
     def readout(self, spec: Readout, x: torch.Tensor) -> torch.Tensor:
         self.trace.append(("readout", spec.name, 1))
         if spec.spatial_mean:               # (T, B, H, W, C) -> (T, B, C)
-            x = torch.mean(x.to(torch.float32), dim=(2, 3))
+            if not x.is_floating_point():   # an int32 spike plane
+                x = x.to(torch.float32)
+            x = torch.mean(x, dim=(2, 3))
         return readout_apply(self.param(spec), x)
 
     def _conv(self, spec: Conv, x):
@@ -125,8 +139,9 @@ class Executor:
 
 
 class FloatExecutor(Executor):
-    """Float lowering.  Only the conv is ported: the integer path's stem
-    runs it (fake-quant included when the precision is quantized)."""
+    """Float/BPTT lowering: the surrogate-gradient training path.  With a
+    quantized precision the conv and dense weights go through QAT
+    fake-quant (the forward the paper trains with)."""
 
     kind = "float"
 
@@ -139,6 +154,15 @@ class FloatExecutor(Executor):
         return spiking_conv_apply(self.param(spec), x, self.lif, self.pc,
                                   stride=spec.stride)
 
+    def _pool(self, spec, x):
+        return avgpool_t(x, spec.window)
+
+    def _merge(self, h, sc):
+        return (h + sc) * 0.5   # spike-rate-preserving residual merge
+
+    def _dense(self, spec, x):
+        return spiking_dense_apply(self.param(spec), x, self.lif, self.pc)
+
 
 class IntExecutor(FloatExecutor):
     """Per-call integer lowering: the stem stays float (its input is
@@ -147,6 +171,7 @@ class IntExecutor(FloatExecutor):
     residual merge a spike OR, so inter-layer planes stay 1-bit."""
 
     kind = "int"
+    supports_groups = True
 
     def fused_group(self, group, specs, x: torch.Tensor) -> torch.Tensor:
         """One ``fused_group`` launch for the whole member chain.  Trace
@@ -216,14 +241,15 @@ def run_graph(graph: ModelGraph, executor: Executor, images: torch.Tensor,
     rate after every top-level Conv, Residual merge and Dense, as
     ``repro``'s run_graph does.
 
-    Fusion groups: each top-level group's member chain lowers through
-    ``executor.fused_group`` in one launch (residual-body groups inside
-    ``Executor.residual``).  ``rates`` needs every member's output
-    plane, so rate-instrumented runs lower top-level groups member by
-    member, bit-exact with the fused chain.
+    Fusion groups: when the executor ``supports_groups``, each top-level
+    group's member chain lowers through ``executor.fused_group`` in one
+    launch (residual-body groups inside ``Executor.residual``).
+    ``rates`` needs every member's output plane, so rate-instrumented
+    runs lower top-level groups member by member, bit-exact with the
+    fused chain.
     """
     fused_at = {}
-    if rates is None:
+    if graph.groups and executor.supports_groups and rates is None:
         top_index = {node.name: i for i, node in enumerate(graph.nodes)}
         for g in graph.groups:
             if g.members[0] in top_index:       # not a residual body
@@ -263,7 +289,7 @@ def run_graph(graph: ModelGraph, executor: Executor, images: torch.Tensor,
 
 def executor_for(graph: ModelGraph, params, package=None) -> Executor:
     """Packaged when a deploy package is supplied, per-call integer when
-    ``cfg.int_path``; the float/BPTT forward is not ported yet."""
+    ``cfg.int_path``, float/BPTT otherwise."""
     if package is not None:
         if not graph.cfg.int_path:
             raise ValueError("a deploy package drives the integer path "
@@ -271,5 +297,4 @@ def executor_for(graph: ModelGraph, params, package=None) -> Executor:
         return PackagedExecutor(graph, params, package)
     if graph.cfg.int_path:
         return IntExecutor(graph, params)
-    raise NotImplementedError("the float/BPTT forward is not yet ported to "
-                              "repro_torch; use an int_deploy config")
+    return FloatExecutor(graph, params)

@@ -754,3 +754,62 @@ def test_packed_qmatmul_every_mma_instance(cuda, tile, grouped, dtype, bits):
     assert qmm_ops.qmatmul.launches == before + 1
     assert got.dtype == dtype and got.shape == (m, n)
     _check_qmatmul(got, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_float_conv_is_full_fp32_forward_and_backward(cuda, stride):
+    """The float/BPTT conv (``snn_layers._conv2d``) keeps TF32 off in its
+    backward too, whatever the global flags: with PyTorch's default
+    ``cudnn.allow_tf32=True`` its output and both gradients sit within
+    1e-4 of the largest float64 value, and two runs give the same bits
+    (deterministic cuDNN).  The bound: cuDNN's deterministic float32
+    weight gradient (FFT-based here) measured 1.6e-5 on the H100; TF32's
+    10-bit mantissa puts a plain ``F.conv2d`` under the same global flags
+    above it, which the control asserts, so the test can see TF32."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import snn_layers
+
+    gen = torch.Generator().manual_seed(stride)
+    x = torch.rand((32, 32, 32, 64), generator=gen)
+    w = torch.randn((3, 3, 64, 64), generator=gen) * 0.06
+    gy = torch.randn((32, 32 // stride, 32 // stride, 64), generator=gen)
+
+    def plain(xn, wn, stride):     # PyTorch's defaults, SAME pads
+        y = F.conv2d(xn.permute(0, 3, 1, 2), wn.permute(3, 2, 0, 1),
+                     stride=stride, padding=1 if stride == 1 else 0)
+        return y.permute(0, 2, 3, 1)
+
+    def run(conv, dev, dtype):
+        xd = x.to(dev, dtype)
+        if conv is plain and stride == 2:   # SAME at stride 2: pad (0, 1)
+            xd = F.pad(xd, (0, 0, 0, 1, 0, 1))
+        xd.requires_grad_(True)
+        wd = w.to(dev, dtype).requires_grad_(True)
+        y = conv(xd, wd, stride)
+        gx, gw = torch.autograd.grad(y, (xd, wd), gy.to(dev, dtype))
+        if conv is plain and stride == 2:
+            gx = gx[:, :32, :32]
+        return [t.detach().to("cpu", torch.float64) for t in (y, gx, gw)]
+
+    def errs(got, want):
+        return [float((g - r).abs().max() / r.abs().max())
+                for g, r in zip(got, want)]
+
+    exact = lambda a, b, s: snn_layers._conv2d(a, b, stride=s)  # noqa
+    want = run(exact, "cpu", torch.float64)
+    assert max(errs(run(plain, "cpu", torch.float64), want)) <= 1e-12
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got, again = (run(exact, cuda, torch.float32),
+                      run(exact, cuda, torch.float32))
+        control = errs(run(plain, cuda, torch.float32), want)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    for name, err, g, a in zip(("out", "grad x", "grad w"), errs(got, want),
+                               got, again):
+        assert err <= 1e-4, (name, err)
+        assert torch.equal(g, a), name
+    assert max(control) > 1e-4, f"TF32 control within the bound: {control}"

@@ -15,6 +15,8 @@
    same words, scales and thresholds as ``repro.deploy``.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -216,13 +218,38 @@ def test_load_rejects_fusion_groups(tmp_path):
                                    rtol=1e-5, atol=1e-5)
 
 
-def test_unported_paths_raise():
-    """What is still unported raises instead of running another way: the
-    float/BPTT forward (executor_for without the integer path)."""
+def test_executor_for_dispatch():
+    """The port's twin of ``repro``'s ``test_executor_for_dispatch``:
+    float/BPTT without the integer path, per-call integer with it,
+    packaged with a package (which a float config refuses); and the float
+    resnet18 forward with fusion groups in its graph runs layer by layer,
+    as ``repro``'s does."""
+    from repro_torch.graph import (
+        FloatExecutor, IntExecutor, PackagedExecutor, executor_for)
     from repro_torch.models import snn_cnn
     from repro_torch.models.snn_cnn import SNNConfig
+    from repro_torch.quant.formats import PrecisionConfig
 
-    cfg = SNNConfig(model="resnet18", img_size=16, scale=0.15)
-    with pytest.raises(NotImplementedError, match="float/BPTT"):
-        snn_cnn.apply(snn_cnn.init(0, cfg, device="cpu"), cfg,
-                      torch.zeros((1, 16, 16, 3)))
+    cfg_f = SNNConfig(model="vgg9", img_size=16, timesteps=2, scale=0.15,
+                      n_classes=4)
+    cfg_i = dataclasses.replace(cfg_f, int_deploy=True,
+                                precision=PrecisionConfig(bits=4))
+    params = snn_cnn.init(0, cfg_f, device="cpu")
+    assert type(executor_for(build_graph(cfg_f), params)) is FloatExecutor
+    assert type(executor_for(build_graph(cfg_i), params)) is IntExecutor
+    # a quantized precision alone keeps the float (QAT) forward
+    cfg_q = dataclasses.replace(cfg_f, precision=PrecisionConfig(bits=4))
+    assert type(executor_for(build_graph(cfg_q), params)) is FloatExecutor
+    pkg = deploy(params, cfg_i, device="cpu")
+    assert type(executor_for(build_graph(cfg_i), pkg.float_params,
+                             package=pkg)) is PackagedExecutor
+    with pytest.raises(ValueError, match="integer path"):
+        executor_for(build_graph(cfg_f), params, package=pkg)
+
+    cfg = SNNConfig(model="resnet18", img_size=16, scale=0.15,
+                    fusion="auto")
+    assert len(build_graph(cfg).groups) == 5
+    logits = snn_cnn.apply(snn_cnn.init(0, cfg, device="cpu"), cfg,
+                           torch.rand((2, 16, 16, 3)))
+    assert logits.shape == (2, cfg.n_classes)
+    assert torch.isfinite(logits).all()
