@@ -10,12 +10,13 @@
    PyTorch version on the card, on random packed planes at ~20% spike
    density, random codes and thetas, B=8, T=4, bits 2/4/8 and both
    resets, at every geometry the served paths launch it at (full-width
-   vgg9 and resnet18) plus stride-2 and ragged cases.  Membranes and
+   vgg9, vgg16 and resnet18) plus stride-2 and ragged cases.  Membranes and
    packed words must be bit-exact.  Times the kernel, the plain version
    and one library call that does only the accumulate, each as device
    time per call from torch.profiler (the wrapper's wall time per call
    from CUDA events is printed beside), and works out the bound (bytes
-   over 3.35 TB/s vs the adds this data needs over 1979 T/s).  The
+   over 3.35 TB/s vs the adds this data needs over 1979 T/s, the H100
+   data-sheet rates ``repro_torch.perfmodel.roofline`` holds).  The
    ``fused_group`` phase also times the per-layer ``fused_conv`` + pool
    chain that fusion replaces, on the same input (``chain_ms`` in the
    record), and prints each chain's launch plan (cluster size, T chunk,
@@ -24,17 +25,41 @@
    per unit, staged or L2 codes) and asserts, with one torch.profiler
    pass over one wrapper call, that the call runs exactly one CUDA
    kernel (no pad or copy).
-3. End to end, three paths, each ``graph_init`` (seed 0) -> ``deploy`` ->
+3. End to end, four paths, each ``graph_init`` (seed 0) -> ``deploy`` ->
    ``save`` -> ``load`` at full width, INT4, then
    ``SNNServeEngine(max_batch=8)`` serves 16 requests with every launch
    count set to 0 just before and read just after:
    - vgg9 ``fusion=()``: 4 ``fused_conv`` + 1 ``fused_nce`` per batch;
    - vgg9 ``fusion="auto"``: 1 ``fused_group`` + 1 ``fused_nce``, logits
      also equal to the ``fusion=()`` engine's;
-   - resnet18 ``fusion="auto"``: 5 ``fused_group`` + 9 ``fused_conv``.
+   - resnet18 ``fusion="auto"``: 5 ``fused_group`` + 9 ``fused_conv``;
+   - vgg16 ``fusion=()`` (the paper's Table II network), its params
+     balanced by ``calibrate`` on 32 images (seed 1) first, since an
+     uncalibrated 13-conv SNN goes silent: 12 ``fused_conv`` + 1
+     ``fused_nce``.
    Every request's logits must equal the same forward walked layer by
    layer with the plain versions on the card (TF32 off for both), and
    every packed layer's input spike rate there must be > 0.
+   Last of all (after 6.), the sampled observability passes
+   (``obs_phase``): for vgg9
+   ``fusion=()``, vgg9 ``"auto"`` and resnet18 ``"auto"`` at full width
+   (INT4, seed 0, 2 sample images) ``instrumented_forward``'s rates equal
+   ``apply_with_rates``'s within one float32 ulp (division against a
+   multiply by the rounded reciprocal; a fused group's row exactly: its
+   output plane's rate on the plain path), each pass launches one
+   forward's kernels (vgg9
+   auto: 1 ``fused_group`` + 1 ``fused_nce``), the logits equal the
+   unwrapped forward's, and ``timed_forward`` gives one row per executed
+   node with ``wall_us > 0``; the per-node table (wall, H100 roofline
+   prediction, ratio, bottleneck) is printed beside the unwrapped
+   forward's blocked wall and each pass's cost.  Then ``serve_snn.main``
+   with ``--full --fusion auto --metrics --trace --profile``: the JSONL
+   validates with the ``layer_telemetry``, ``predicted_vs_measured`` and
+   ``code_utilization`` spans, the watchdog's calibration equals the
+   telemetry rates, and the profiler trace holds ``snn_serve_step/b8``
+   and ``fused_group``/``fused_nce`` kernels; and ``launch.train.main``
+   (olmo-1b ``--smoke --steps 3 --profile``) writes a trace with device
+   kernels.
 4. The NCE step path (``NeuronComputeEngine.step`` = ``spike_matmul`` ->
    ``lif_step``'s packed entry, which writes the spike words itself) at
    vgg9's fc1 geometry (T=4, B=8, 4096->512, W2/4/8), kernel_bench's NCE
@@ -130,12 +155,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
-H100_INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, same source
-H100_BF16_OPS_PER_S = 989e12   # dense bf16 tensor-core peak, same source
-# float32 outside the tensor cores, same source; it stands in for the
-# elementwise int32 LIF step, for which the data sheet gives no rate
-H100_FP32_OPS_PER_S = 67e12
 
 
 def _median_ms(fn, iters=20, reps=5):
@@ -159,25 +178,38 @@ def _median_ms(fn, iters=20, reps=5):
 def _device_ms(fn, match="", reps=10, per_call=None):
     """Device time per call of ``fn``: the summed time of the CUDA kernels
     (and copies) it runs, from torch.profiler, counting only events whose
-    name contains ``match``.  The profiler now and then drops events, so
-    a profile is taken again (3 tries) when it holds no device time or,
-    with ``per_call`` (the launches under ``match`` one call makes), not
-    ``reps * per_call`` of them.  Raises when the profiler saw device
-    time but none under ``match`` (a renamed kernel) or never the
+    name contains ``match``.  Each profile runs one call as a warmup
+    step (tracing on, its events dropped) before the ``reps`` calls it
+    keeps, the profiler's schedule for keeping start-up effects out of
+    the window: without it, a profile of ``packed_qmatmul`` on the H100
+    now and then caught 69 of 70 launches in all 3 tries.  The profiler may still drop
+    events, so a profile is taken again (5 tries) when it holds no device
+    time or, with ``per_call`` (the launches under ``match`` one call
+    makes), not ``reps * per_call`` of them.  Raises when the profiler saw
+    device time but none under ``match`` (a renamed kernel) or never the
     expected count; falls back to the CUDA-event wall time only when the
     profiler reports no device time at all."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    tries = 5
+    for _ in range(tries):
+        kept = []      # the active step's events, handed over at its end
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: kept.append(p.key_averages())
+                     ) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
+            prof.step()
+        events = [e for e in kept[0]
                   if e.device_type == DeviceType.CUDA]
         hits = [e for e in events if match in e.key]
         us = sum(e.self_device_time_total for e in hits)
@@ -190,7 +222,7 @@ def _device_ms(fn, match="", reps=10, per_call=None):
                 f"{match!r}: " + ", ".join(e.key[:60] for e in events))
     if us > 0:
         raise AssertionError(f"profiler caught {seen} launches under "
-                             f"{match!r} in 3 tries, expected "
+                             f"{match!r} in {tries} tries, expected "
                              f"{reps * per_call}")
     print(f"  (profiler gave no device time for {match or 'call'}; "
           f"CUDA-event wall time instead)", flush=True)
@@ -227,9 +259,15 @@ def _only_kernels(fn, kernels, calls=10):
                              f"expected {names} alone, each once a call")
 
 
-def _bound_ms(nbytes, ops, ops_per_s=H100_INT8_OPS_PER_S):
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / ops_per_s * 1e3
+def _bound_ms(nbytes, ops, ops_per_s=None):
+    """The least time for ``nbytes`` and ``ops`` on the card, with the
+    H100 data-sheet rates of ``repro_torch.perfmodel.roofline``: HBM
+    bandwidth, and ``ops_per_s`` (default the int8 tensor-core peak).
+    Returns (bound, bytes term, ops term) in ms."""
+    from repro_torch.perfmodel.roofline import HBM_BW, PEAK_INT8_OPS
+
+    t_bytes = nbytes / HBM_BW * 1e3
+    t_ops = ops / (ops_per_s or PEAK_INT8_OPS) * 1e3
     return max(t_bytes, t_ops), t_bytes, t_ops
 
 
@@ -558,6 +596,7 @@ def nce_step_phase(dev, gen):
     from repro_torch.core.nce import NCEConfig, NeuronComputeEngine
     from repro_torch.kernels.fused_nce.ref import fused_nce_rollout_torch
     from repro_torch.kernels.lif_step import ops as lif_ops
+    from repro_torch.perfmodel.roofline import PEAK_FP32_FLOPS
     from repro_torch.kernels.lif_step.ref import lif_step_ref
     from repro_torch.kernels.spike_matmul import ops as sm_ops
     from repro_torch.kernels.spike_matmul.ref import spike_matmul_ref
@@ -691,10 +730,11 @@ def nce_step_phase(dev, gen):
         words = -(-d_out // 32)
         # read v and i, write v' and the words
         nbytes = 12 * v.numel() + 4 * b * words
-        bound, t_b, t_o = _bound_ms(nbytes, 5 * v.numel(),
-                                    H100_FP32_OPS_PER_S)
+        # float32 outside the tensor cores stands in for the elementwise
+        # int32 LIF step, for which the data sheet gives no rate
+        bound, t_b, t_o = _bound_ms(nbytes, 5 * v.numel(), PEAK_FP32_FLOPS)
         int32_bound = _bound_ms(16 * v.numel(), 5 * v.numel(),
-                                H100_FP32_OPS_PER_S)[0]
+                                PEAK_FP32_FLOPS)[0]
         rows["lif_step"][name] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound,
             bytes_ms=t_b, ops_ms=t_o, int32_ms=int32_ms)
@@ -1107,6 +1147,7 @@ def lm_kernel_phase(dev, cfg, params):
     from repro_torch.kernels.kv_attention import ref as kv_ref
     from repro_torch.kernels.packed_qmatmul import ops as qmm_ops
     from repro_torch.kernels.packed_qmatmul import ref as qmm_ref
+    from repro_torch.perfmodel.roofline import PEAK_FLOPS
 
     gen = torch.Generator(device=dev).manual_seed(2)
     layers = [[lin["w"] for blk in ("attn", "mlp") for lin in lp[blk].values()]
@@ -1150,7 +1191,7 @@ def lm_kernel_phase(dev, cfg, params):
                      for qt in layers[0])
         flops = sum(2 * m * qt.shape[0] * qt.shape[1] for qt in layers[0])
         r["bound_ms"], r["bytes_ms"], r["ops_ms"] = _bound_ms(
-            nbytes, flops, H100_BF16_OPS_PER_S)
+            nbytes, flops, PEAK_FLOPS)
         r["variant"] = ", ".join(variants)
         return r, err, run, nbytes
 
@@ -1241,7 +1282,7 @@ def lm_kernel_phase(dev, cfg, params):
     nbytes = (b * live * kh * (2 * kp.shape[-1] * 4 + 2 * 4)
               + 2 * q.numel() * 2)
     flops = 4 * b * h * live * hd
-    bound, t_b, t_o = _bound_ms(nbytes, flops, H100_BF16_OPS_PER_S)
+    bound, t_b, t_o = _bound_ms(nbytes, flops, PEAK_FLOPS)
     rows["kv_attention"] = {"decode": dict(
         ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
         bytes_ms=t_b, ops_ms=t_o)}
@@ -1259,13 +1300,14 @@ def lm_kernel_phase(dev, cfg, params):
 def plain_forward(model, images):
     """The packaged forward walked layer by layer with the plain kernel
     versions (fusion groups lowered member by member), recording each
-    packed layer's input spike rate."""
+    packed layer's input spike rate (the float32 mean ``repro`` takes)."""
     import torch
 
     from repro_torch.core import packing
     from repro_torch.core.snn_layers import (
         maxpool_t, readout_apply, spiking_conv_apply)
     from repro_torch.graph import build_graph
+    from repro_torch.graph.executors import mean_f32
     from repro_torch.graph.spec import (
         Conv, Dense, Encode, Pool, Readout, Residual, get_path)
     from repro_torch.kernels.fused_conv.ref import fused_conv_rollout_torch
@@ -1276,7 +1318,7 @@ def plain_forward(model, images):
 
     def conv(name, x):
         lp = model.layers[name]
-        rates[name] = float(x.float().mean())
+        rates[name] = float(mean_f32(x))
         _, out = fused_conv_rollout_torch(
             packing.pack_bool(x), lp.qt, stride=lp.stride, padding="SAME",
             leak_shift=lif.leak_shift, threshold_q=lp.theta_q,
@@ -1304,13 +1346,13 @@ def plain_forward(model, images):
         elif isinstance(node, Dense):
             lp = model.layers[node.name]
             x = x.reshape(x.shape[0], x.shape[1], -1)
-            rates[node.name] = float(x.float().mean())
+            rates[node.name] = float(mean_f32(x))
             _, out = fused_nce_rollout_torch(
                 packing.pack_bool(x), lp.qt, d_in=node.d_in,
                 leak_shift=lif.leak_shift, threshold_q=lp.theta_q,
                 soft_reset=lif.soft_reset)
             x = packing.unpack_bool(out, node.d_out)
-            rates[f"{node.name}.out"] = float(x.float().mean())
+            rates[f"{node.name}.out"] = float(mean_f32(x))
         elif isinstance(node, Readout):
             if node.spatial_mean:
                 x = torch.mean(x.to(torch.float32), dim=(2, 3))
@@ -1367,36 +1409,44 @@ def profile_batch(model, x, reps=5):
     profile_calls(forward, "B=8 forward", reps)
 
 
+def _kernel_counters():
+    from repro_torch.kernels.fused_conv import ops as conv_ops
+    from repro_torch.kernels.fused_group import ops as group_ops
+    from repro_torch.kernels.fused_nce import ops as nce_ops
+
+    return {"fused_conv": conv_ops.fused_conv_rollout,
+            "fused_nce": nce_ops.fused_nce_rollout,
+            "fused_group": group_ops.fused_group_rollout}
+
+
 def serve_phase(dev, model_name, fusion, per_batch, same_as=None,
-                params=None, images=None):
+                params=None, images=None, what="trained"):
     """Serve 16 full-width INT4 requests of ``model_name`` with ``fusion``
     through the engine (max_batch=8); assert ``per_batch`` launches of
     each kernel per batch (counts set to 0 just before, read just after)
     and every request's logits equal to the plain path's (and to
     ``same_as``, another path's logits, when given).  ``params`` (default
     ``graph_init`` from seed 0) is the float tree deployed, ``images``
-    (default uniform noise from seed 0) the 16 requests.  Returns the
-    launch counts and the logits."""
+    (default uniform noise from seed 0) the 16 requests; ``what`` names
+    given params in the output.  Returns the launch counts and the
+    logits."""
     import numpy as np
     import torch
 
     from repro_torch.deploy import (
         SNNEngineConfig, SNNRequest, SNNServeEngine, deploy, deploy_config,
         load)
-    from repro_torch.kernels.fused_conv import ops as conv_ops
-    from repro_torch.kernels.fused_group import ops as group_ops
-    from repro_torch.kernels.fused_nce import ops as nce_ops
     from repro_torch.models import snn_cnn
 
     trained = params is not None
-    label = f"{'trained ' * trained}{model_name} fusion={fusion!r}"
+    label = f"{(what + ' ') * trained}{model_name} fusion={fusion!r}"
     cfg = deploy_config(model_name, 4, smoke=False, fusion=fusion)
     if not trained:
         params = snn_cnn.init(0, cfg, device=dev)
     model = deploy(params, cfg, device=dev)
     pkg_dir = ROOT / "build" / "chip_smoke"
     pkg_dir.mkdir(parents=True, exist_ok=True)
-    tag = ("trained_" * trained) + ("auto" if fusion else "off")
+    tag = ((what + "_") * trained) + ("auto" if fusion else "off")
     path = model.save(str(pkg_dir / f"{model_name}_w4_{tag}_full.npz"))
     model = load(path, device=dev)
     print(f"{label} INT4 full width: {len(model.layers)} packed layers, "
@@ -1411,9 +1461,7 @@ def serve_phase(dev, model_name, fusion, per_batch, same_as=None,
         images = np.random.default_rng(0).random(
             (16, cfg.img_size, cfg.img_size,
              cfg.in_channels)).astype(np.float32)
-    counters = {"fused_conv": conv_ops.fused_conv_rollout,
-                "fused_nce": nce_ops.fused_nce_rollout,
-                "fused_group": group_ops.fused_group_rollout}
+    counters = _kernel_counters()
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -1469,6 +1517,34 @@ def serve_phase(dev, model_name, fusion, per_batch, same_as=None,
           flush=True)
     return launches, logits
 
+
+def vgg16_serve_phase(dev):
+    """vgg16 (the paper's Table II network) ``fusion=()`` at full width,
+    INT4, served as ``serve_phase`` serves: 12 ``fused_conv`` + 1
+    ``fused_nce`` a batch, logits bit-equal to the plain path.  An
+    uncalibrated 13-conv SNN goes silent after ~6 layers (its input rate
+    check would fail), so the ``graph_init`` (seed 0) params are first
+    balanced by ``calibrate`` on 32 uniform-noise images (seed 1), the
+    paper's deploy flow."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.deploy import deploy_config
+    from repro_torch.models import snn_cnn
+
+    cfg = deploy_config("vgg16", 4, smoke=False)
+    calib = torch.from_numpy(np.random.default_rng(1).random(
+        (32, cfg.img_size, cfg.img_size,
+         cfg.in_channels)).astype(np.float32)).to(dev)
+    params = snn_cnn.calibrate(snn_cnn.init(0, cfg, device=dev),
+                               dataclasses.replace(cfg, int_deploy=False),
+                               calib)
+    launches, _ = serve_phase(dev, "vgg16", (),
+                              {"fused_conv": 12, "fused_nce": 1},
+                              params=params, what="calibrated")
+    return launches
 
 def _drive_async(aeng, images):
     """64 requests submitted from 4 threads into a started tier, then
@@ -1538,9 +1614,6 @@ def async_serve_phase(dev, card):
     from repro_torch.deploy import (
         SNNEngineConfig, SNNRequest, SNNServeEngine, deploy, deploy_config,
         load)
-    from repro_torch.kernels.fused_conv import ops as conv_ops
-    from repro_torch.kernels.fused_group import ops as group_ops
-    from repro_torch.kernels.fused_nce import ops as nce_ops
     from repro_torch.models import snn_cnn
     from repro_torch.obs import validate as obs_validate
     from repro_torch.serve_async import (
@@ -1572,9 +1645,7 @@ def async_serve_phase(dev, card):
                          registry=reg)
     aeng = AsyncSNNServeEngine(eng, AsyncEngineConfig(workers=2))
     aeng.warmup()
-    counters = {"fused_conv": conv_ops.fused_conv_rollout,
-                "fused_nce": nce_ops.fused_nce_rollout,
-                "fused_group": group_ops.fused_group_rollout}
+    counters = _kernel_counters()
     for fn in counters.values():
         fn.launches = 0
     aeng.start()
@@ -1644,6 +1715,276 @@ def async_serve_phase(dev, card):
           f"{sync_stats['compute_avg_ms']:.3f} ms/batch); phase "
           f"{time.perf_counter() - t_phase:.2f} s", flush=True)
     return {k: v for k, v in launches.items() if v}
+
+
+def _counted(fn):
+    """Run ``fn`` with the SNN kernels' launch counts set to 0 just
+    before; returns its result and the counts read just after."""
+    counters = _kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    return out, {k: c.launches for k, c in counters.items() if c.launches}
+
+
+def _blocked_ms(fn, reps=5):
+    """Median wall ms of ``fn`` to its last device op (one warm call
+    first): the host clock around a call that ends in a synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def _trace_events(prof_dir):
+    """The events of the one torch.profiler trace in ``prof_dir``."""
+    files = sorted(Path(prof_dir).glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"expected one trace in {prof_dir}, found "
+                             f"{[f.name for f in files]}")
+    return json.loads(files[0].read_text())["traceEvents"]
+
+
+def obs_phase(dev, card):
+    """The serve path's sampled observability passes on the card.
+
+    1. For vgg9 ``fusion=()``, vgg9 ``"auto"`` and resnet18 ``"auto"``
+       (full width, INT4, ``graph_init`` seed 0, 2 sample images):
+       ``instrumented_forward``'s records equal the plain forward's
+       ``apply_with_rates`` at every instrumentation point within one
+       float32 ulp (the two means round ``count / n`` two ways, as
+       ``repro``'s jitted and op-by-op ``jnp.mean`` do; a fused group's
+       row exactly: the same mean of its output plane on the plain
+       path), and
+       the telemetry and attribution passes each launch the kernels of
+       one forward (vgg9 auto: 1 ``fused_group`` + 1 ``fused_nce``);
+       ``timed_forward`` gives one row per executed node, each with
+       ``wall_us > 0``; each node's median wall over 5 more timed
+       passes (and its spread) is printed beside its H100 roofline
+       prediction, with the unwrapped forward's blocked wall and what
+       each sampled pass costs (medians).
+    2. ``serve_snn.main([--full, --fusion auto, --metrics, --trace,
+       --profile])``: its JSONL passes ``obs.validate`` with the
+       ``layer_telemetry``, ``predicted_vs_measured`` and
+       ``code_utilization`` spans, the watchdog's calibration equals the
+       telemetry rates, and the profiler trace holds
+       ``snn_serve_step/b8`` and device events of ``fused_group`` and
+       ``fused_nce``.
+    3. ``launch.train.main([--arch olmo-1b --smoke --steps 3 --profile])``
+       writes a trace with device kernels.
+    Returns the launch counts of each counted run."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.deploy import deploy, deploy_config
+    from repro_torch.graph import build_graph
+    from repro_torch.graph.spec import Conv, Dense, Residual
+    from repro_torch.launch import serve_snn
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models import snn_cnn
+    from repro_torch.obs import validate as obs_validate
+
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build" / "chip_smoke" / "obs"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    runs = {}
+    for name, fusion, per_pass in (
+            ("vgg9", (), {"fused_conv": 4, "fused_nce": 1}),
+            ("vgg9", "auto", {"fused_group": 1, "fused_nce": 1}),
+            ("resnet18", "auto", {"fused_group": 5, "fused_conv": 9})):
+        label = f"{name} fusion={fusion!r}"
+        cfg = deploy_config(name, 4, smoke=False, fusion=fusion)
+        model = deploy(snn_cnn.init(0, cfg, device=dev), cfg, device=dev)
+        x = torch.from_numpy(np.random.default_rng(0).random(
+            (2, cfg.img_size, cfg.img_size,
+             cfg.in_channels)).astype(np.float32)).to(dev)
+        graph = build_graph(cfg)
+        with torch.inference_mode():
+            plain_logits, plain_rates = model.apply_with_rates(x)
+            _, input_rates = plain_forward(model, x)
+        points = [n.name for n in graph.nodes
+                  if isinstance(n, (Conv, Residual, Dense))]
+        want = dict(zip(points, plain_rates))
+        top = {n.name: i for i, n in enumerate(graph.nodes)}
+        groups = set()
+        for g in graph.groups:
+            if g.members[0] in top:         # a top-level chain: its output
+                nxt = graph.nodes[top[g.members[-1]] + 1].name
+                want[g.name] = input_rates[nxt]     # is the next's input
+                groups.add(g.name)
+
+        reg = obs.MetricsRegistry()
+        (logits, records), tel_launches = _counted(
+            lambda: obs.instrumented_forward(
+                cfg, model.float_params, x, package=model, registry=reg))
+        (t_logits, timed), att_launches = _counted(
+            lambda: obs.timed_forward(
+                cfg, model.float_params, x, package=model, registry=reg))
+        for what, launches in (("telemetry", tel_launches),
+                               ("attribution", att_launches)):
+            if launches != per_pass:
+                raise AssertionError(f"obs {label}: the {what} pass "
+                                     f"launched {launches}; expected "
+                                     f"{per_pass} (one forward)")
+        runs[f"obs {name} {'auto' if fusion else 'off'}"] = {
+            k: tel_launches.get(k, 0) + att_launches.get(k, 0)
+            for k in per_pass}
+        with torch.inference_mode():
+            unwrapped = model.apply(x)
+        for what, got in (("telemetry", logits), ("attribution", t_logits)):
+            if not torch.equal(got, unwrapped):
+                raise AssertionError(f"obs {label}: the {what} pass's "
+                                     f"logits differ from the forward's")
+        # telemetry's float32 mean multiplies by the rounded reciprocal
+        # (repro's jitted jnp.mean), apply_with_rates divides (jnp.mean
+        # op by op): one float32 ulp apart at most; a group's row is held
+        # exactly against the plain path's mean_f32 of its output plane
+        got = {r["layer"]: r["rate"] for r in records}
+        off = {k: (v, want.get(k)) for k, v in got.items()
+               if k not in want or abs(v - want[k]) > (0 if k in groups else
+                   float(np.spacing(np.float32(max(v, want[k])))))}
+        if off:
+            raise AssertionError(f"obs {label}: telemetry rates off the "
+                                 f"plain forward's: {off}")
+        n_exec = len(graph.nodes) - sum(
+            len(g.members) - 1 for g in graph.groups if g.members[0] in top)
+        if len(timed) != n_exec or not all(r["wall_us"] > 0 for r in timed):
+            raise AssertionError(f"obs {label}: {len(timed)} attributed "
+                                 f"nodes of {n_exec}, walls "
+                                 f"{[r['wall_us'] for r in timed]}")
+
+        def fwd():
+            with torch.inference_mode():
+                model.apply(x)
+
+        fwd_ms = _blocked_ms(fwd)
+        tel_ms = _blocked_ms(lambda: obs.instrumented_forward(
+            cfg, model.float_params, x, package=model,
+            registry=obs.MetricsRegistry()))
+        # 5 more timed passes: each node's median wall, its spread, and
+        # the median pass (the counted pass above ran first)
+        walls, att = {}, []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            _, rows = obs.timed_forward(cfg, model.float_params, x,
+                                        package=model,
+                                        registry=obs.MetricsRegistry())
+            torch.cuda.synchronize()
+            att.append((time.perf_counter() - t0) * 1e3)
+            for r in rows:
+                walls.setdefault(r["layer"], []).append(r["wall_us"])
+        med = [dict(r, wall_us=sorted(walls[r["layer"]])[2]) for r in timed]
+        for r in med:
+            r["ratio"] = round(r["wall_us"] / r["predicted_us"], 2) \
+                if r["predicted_us"] else None
+        summ = obs.attribution_summary(med)
+        print(f"obs {label} INT4 full width, B=2, on {card}: telemetry "
+              f"rates equal apply_with_rates (one ulp) at all {len(records)} "
+              f"rows; launches a pass {tel_launches}; forward {fwd_ms:.3f} "
+              f"ms blocked wall, telemetry pass {tel_ms:.3f} ms, attribution "
+              f"pass {sorted(att)[2]:.3f} ms (medians); per node, the median "
+              f"of 5 timed passes: {summ['wall_us']:.1f} us in all against "
+              f"an H100 roofline of {summ['predicted_us']:.1f} us "
+              f"({summ['host_over_roofline_x']}x), hottest "
+              f"{summ['hottest_layer']} {summ['hottest_wall_us']:.1f} us",
+              flush=True)
+        print(f"  {'layer':<16} {'kind':<12} {'wall_us':>10} {'min-max':>17} "
+              f"{'predicted_us':>13} {'ratio':>10}  bottleneck", flush=True)
+        for r in med:
+            pred, ratio = (("-" if r[k] is None else r[k])
+                           for k in ("predicted_us", "ratio"))
+            spread = (f"{min(walls[r['layer']]):.2f}-"
+                      f"{max(walls[r['layer']]):.2f}")
+            print(f"  {r['layer']:<16} {r['kind']:<12} {r['wall_us']:>10.2f} "
+                  f"{spread:>17} {pred:>13} {ratio:>10}  "
+                  f"{r['bottleneck'] or '-'}", flush=True)
+        for r in records:
+            print(f"  telemetry {r['layer']:<14} rate {r['rate']:.6f} "
+                  f"saturation {r['saturation']:.6f} silent "
+                  f"{r['silent']:.6f} resets {r['resets']}", flush=True)
+        del model
+
+    # the launcher, as a user runs it
+    jsonl, trace = out_dir / "serve_snn.jsonl", out_dir / "serve_snn.trace.json"
+    prof = out_dir / "serve_profile"
+    watchdogs = []
+
+    class Recording(obs.Watchdog):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            watchdogs.append(self)
+
+    real = obs.Watchdog
+    obs.Watchdog = Recording
+    try:
+        t0 = time.perf_counter()
+        stats, launches = _counted(lambda: serve_snn.main(
+            ["--full", "--fusion", "auto", "--requests", "16",
+             "--metrics", str(jsonl), "--trace", str(trace),
+             "--profile", str(prof)]))
+        launcher_s = time.perf_counter() - t0
+    finally:
+        obs.Watchdog = real
+        obs.disable_default()
+    runs["obs launcher vgg9 auto"] = launches
+    if stats["requests"] != 16 or set(launches) != {"fused_group",
+                                                    "fused_nce"}:
+        raise AssertionError(f"obs launcher: {stats['requests']} requests, "
+                             f"launches {launches}")
+    spans = "layer_telemetry,predicted_vs_measured,code_utilization"
+    if obs_validate.main([str(jsonl), "--require-spans", spans]) != 0 or \
+            obs_validate.main([str(trace), "--trace"]) != 0:
+        raise AssertionError(f"obs launcher: {jsonl} or {trace} fails "
+                             f"obs.validate")
+    rates = {s["layer"]: s["rate"] for s in obs.read_jsonl(str(jsonl))
+             ["spans"] if s.get("event") == "layer_telemetry"}
+    if len(watchdogs) != 1 or watchdogs[0].calibration != rates or \
+            not rates:
+        raise AssertionError(f"obs launcher: watchdog calibration "
+                             f"{[w.calibration for w in watchdogs]} != the "
+                             f"telemetry rates {rates}")
+    events = _trace_events(prof)
+    steps = [e for e in events if e.get("name") == "snn_serve_step/b8"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(k in n for n in kernels)
+             for k in ("fused_group_kernel", "fused_nce_kernel")}
+    if not steps or not all(found.values()):
+        raise AssertionError(f"obs launcher: profiler trace holds "
+                             f"{len(steps)} snn_serve_step/b8 ranges and "
+                             f"kernels {found}")
+    print(f"obs launcher (serve_snn --full --fusion auto --metrics --trace "
+          f"--profile, 16 requests) on {card}: {launcher_s:.2f} s, "
+          f"{stats['images_per_s']:.1f} images/s served under the "
+          f"profiler; JSONL valid with {spans}; watchdog calibration = the "
+          f"{len(rates)} telemetry rates; trace: {len(steps)} "
+          f"snn_serve_step/b8 ranges, {len(kernels)} kernel events "
+          f"({found}); launches {launches}", flush=True)
+
+    tprof = out_dir / "train_profile"
+    t0 = time.perf_counter()
+    train_launcher.main(["--arch", "olmo-1b", "--smoke", "--steps", "3",
+                         "--ckpt-dir", str(out_dir / "ckpt"),
+                         "--profile", str(tprof)])
+    kernels = [e for e in _trace_events(tprof) if e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError("obs train --profile: no kernel in the trace")
+    print(f"obs train launcher (olmo-1b --smoke --steps 3 --profile) on "
+          f"{card}: {time.perf_counter() - t0:.2f} s, {len(kernels)} kernel "
+          f"events in the trace; phase {time.perf_counter() - t_phase:.2f} "
+          f"s", flush=True)
+    shutil.rmtree(out_dir / "ckpt", ignore_errors=True)
+    return runs
 
 
 def _snn_ce(logits, y):
@@ -2301,9 +2642,12 @@ def main() -> int:
         "blocks.6.proj": (8, 8, 256, 512, 1, 2),
         "s2_3x3": (16, 16, 64, 128, 3, 2),
         "s2_1x1": (16, 16, 64, 128, 1, 2),
+        "vgg16.convs.7": (4, 4, 256, 512, 3, 1),
+        "vgg16.convs.10": (2, 2, 512, 512, 3, 1),   # also .11, .12
         "ragged": (9, 7, 40, 36, 3, 1),
     }
-    nce_geoms = {"fc1": (8, 4096, 512), "ragged": (8, 1000, 100)}
+    nce_geoms = {"fc1": (8, 4096, 512), "vgg16.fc1": (8, 2048, 512),
+                 "ragged": (8, 1000, 100)}
     # (hw, c_in, members): the vgg9 chain and each distinct resnet18 body
     group_chains = {
         "vgg9": (32, 64, [64, "P", 128, 128, "P", 256, "P"]),
@@ -2323,6 +2667,26 @@ def main() -> int:
         "vgg9 trained off": {"fused_conv": ["convs.1", "convs.2", "convs.3",
                                             "convs.4"], "fused_nce": ["fc1"]},
         "vgg9 trained auto": {"fused_group": ["vgg9"], "fused_nce": ["fc1"]},
+        # convs.5-6 and .8-9 at resnet18's blocks.4.conv2 / .6.conv2
+        "vgg16 off": {"fused_conv": [
+            "convs.1", "convs.2", "convs.3", "convs.4", "blocks.4.conv2",
+            "blocks.4.conv2", "vgg16.convs.7", "blocks.6.conv2",
+            "blocks.6.conv2", "vgg16.convs.10", "vgg16.convs.10",
+            "vgg16.convs.10"], "fused_nce": ["vgg16.fc1"]},
+        # the obs phase: a telemetry and an attribution pass of B=2 each;
+        # the launcher: warmup, both passes and 16 requests
+        "obs vgg9 off": {"fused_conv": ["convs.1", "convs.2", "convs.3",
+                                        "convs.4"], "fused_nce": ["fc1"]},
+        "obs vgg9 auto": {"fused_group": ["vgg9"], "fused_nce": ["fc1"]},
+        "obs resnet18 auto": {
+            "fused_group": ["blocks.0", "blocks.0", "blocks.3", "blocks.5",
+                            "blocks.7"],
+            "fused_conv": ["blocks.2.conv1", "convs.3", "blocks.2.proj",
+                           "blocks.4.conv1", "blocks.4.conv2",
+                           "blocks.4.proj", "blocks.6.conv1",
+                           "blocks.6.conv2", "blocks.6.proj"]},
+        "obs launcher vgg9 auto": {"fused_group": ["vgg9"],
+                                   "fused_nce": ["fc1"]},
         "resnet18 auto": {
             "fused_group": ["blocks.0", "blocks.0", "blocks.3", "blocks.5",
                             "blocks.7"],
@@ -2368,6 +2732,7 @@ def main() -> int:
         same_as=flat_logits)
     runs["resnet18 auto"], _ = serve_phase(
         dev, "resnet18", "auto", {"fused_group": 5, "fused_conv": 9})
+    runs["vgg16 off"] = vgg16_serve_phase(dev)
     runs["vgg9 async"] = async_serve_phase(dev, smi)
     runs.update(snn_train_phase(dev, smi))
 
@@ -2394,14 +2759,21 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     runs["olmo train → serve"] = train_phase(dev, smi)
+    # last: it profiles whole launcher runs (every host thread), after
+    # the phases whose profiles count kernel events
+    runs.update(obs_phase(dev, smi))
     print("kernel record: ms, plain_ms, library_ms and bound_ms are device "
           "time per call (torch.profiler), summed over the distinct "
           "geometries the main paths launch the kernel at (one call each; "
           "packed_qmatmul: the 7 linears of one olmo-1b layer at M=8, at "
           "each serve prompt length and at M=4096; geometries also holds "
           "M=256, which no path launches); launches are summed over the "
-          "paths that launch the kernel (the three served SNN paths, 16 "
+          "paths that launch the kernel (the four served SNN paths, 16 "
           "requests in 2 batches each; the async vgg9 path, 128 requests; "
+          "the obs phase's telemetry and attribution passes, one B=2 "
+          "forward each, on vgg9 off/auto and resnet18 auto, and its "
+          "launcher run, vgg9 auto: 4 warmup forwards, both passes and 16 "
+          "requests; "
           "the vgg9 trained on the card, served unfused and fused, 16 "
           "requests in 2 batches each; "
           "the NCE step path's unfused rollouts, whose lif_step row times "

@@ -45,6 +45,7 @@ Not ported yet: ``data_parallel`` (which raises).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import threading
@@ -54,6 +55,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _tprof
+from torch.profiler import record_function
 
 from repro_torch import obs
 from repro_torch.deploy.package import DeployedModel
@@ -285,7 +288,13 @@ class SNNServeEngine:
             images[i] = req.image
         t0 = time.perf_counter()
         x = torch.from_numpy(images).to(self.device)
-        logits = self._forward(x)
+        # names this dispatch in --profile traces (snn_serve_step/b<bucket>);
+        # a record_function costs ~15 us of host time, so it is entered
+        # only while a profiler runs (the flag is process-wide: the async
+        # tier's workers see it too)
+        with (record_function(f"snn_serve_step/b{bucket}")
+              if _tprof._is_profiler_enabled else contextlib.nullcontext()):
+            logits = self._forward(x)
         done = None
         if self.device.type == "cuda":
             done = torch.cuda.Event()

@@ -22,6 +22,7 @@ from repro_torch.graph.executors import (  # noqa: F401
     FloatExecutor,
     IntExecutor,
     PackagedExecutor,
+    WrappedExecutor,
     executor_for,
     run_graph,
 )

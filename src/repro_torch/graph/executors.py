@@ -16,7 +16,9 @@ Port of ``repro.graph.executors``:
                       pre-packed weights and folded thresholds.
 
 ``CalibratingExecutor`` (graph/passes.py) is a fourth traversal: the
-float forward with a per-layer gain hook.
+float forward with a per-layer gain hook.  ``WrappedExecutor`` is the
+delegating base of the observability wrappers (``obs.telemetry``,
+``obs.attribution``), which run over any of the three.
 
 Every executor records a ``trace`` of ``(kind, name, stride)`` rows in
 execution order, the same rows ``repro``'s executors record, grouped or
@@ -27,6 +29,7 @@ from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.snn_layers import (
@@ -50,6 +53,20 @@ from repro_torch.graph.spec import (
     Residual,
     get_path,
 )
+
+
+def mean_f32(x: torch.Tensor, dim: Optional[int] = None) -> torch.Tensor:
+    """The float32 mean of ``x`` (over ``dim``, or all of it) as
+    ``repro``'s jitted ``jnp.mean`` computes it: XLA folds ``sum / n``
+    into ``sum * (1 / n)``, the reciprocal rounded to float32, so a
+    telemetry rate equals ``repro``'s to the bit.  ``torch.mean``
+    divides, as ``jnp.mean`` run op by op does (``_record_rate`` below,
+    held against ``repro`` under ``disable_jit``); the two sit one ulp
+    apart now and then."""
+    x = x.to(torch.float32)
+    n = x.numel() if dim is None else x.shape[dim]
+    total = torch.sum(x) if dim is None else torch.sum(x, dim=dim)
+    return total * float(np.float32(1.0) / np.float32(n))
 
 
 def _record_rate(rates, x) -> None:
@@ -232,6 +249,50 @@ class PackagedExecutor(IntExecutor):
     def _operands(self, spec, key: str) -> dict:
         lp = self.package.layers[spec.name]
         return {"params": None, key: lp.qt, "threshold_q": lp.theta_q}
+
+
+class WrappedExecutor:
+    """Delegating base for instrumenting wrappers (obs telemetry, obs
+    time attribution): forwards every node method plus ``trace`` and
+    ``supports_groups`` to ``inner``, so :func:`run_graph` sees a normal
+    executor and fuses the same groups it would fuse unwrapped.
+    Subclasses override exactly the node methods they observe; the trace
+    stays on the inner executor, so executor-parity checks hold through
+    any wrapper stack."""
+
+    kind = "wrapped"
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    @property
+    def trace(self):
+        return self.inner.trace
+
+    @property
+    def supports_groups(self):
+        return getattr(self.inner, "supports_groups", False)
+
+    def encode(self, spec, images):
+        return self.inner.encode(spec, images)
+
+    def conv(self, spec, x):
+        return self.inner.conv(spec, x)
+
+    def pool(self, spec, x):
+        return self.inner.pool(spec, x)
+
+    def residual(self, spec, x):
+        return self.inner.residual(spec, x)
+
+    def fused_group(self, group, specs, x):
+        return self.inner.fused_group(group, specs, x)
+
+    def dense(self, spec, x):
+        return self.inner.dense(spec, x)
+
+    def readout(self, spec, x):
+        return self.inner.readout(spec, x)
 
 
 def run_graph(graph: ModelGraph, executor: Executor, images: torch.Tensor,

@@ -4,13 +4,15 @@ Packs a randomly initialized model (seeded) once with ``deploy`` and
 serves a synthetic request stream through :class:`SNNServeEngine`.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.serve_snn [--full]
-      [--model vgg9|resnet18] [--fusion off|auto] [--bits 4]
+      [--model vgg9|vgg16|resnet18] [--fusion off|auto] [--bits 4]
       [--requests 32] [--max-batch 8] [--package PATH] [--show-graph]
+      [--metrics [PATH]] [--trace [PATH]] [--profile [DIR]]
       [--device cuda|cpu]
 
 ``--fusion auto`` plans the model's fusion groups (vgg9: one chain of
 convs.1-4 and the pools; resnet18: the five stride-1 block bodies), each
-served by one launch of the ``fused_group`` kernel.
+served by one launch of the ``fused_group`` kernel.  vgg16 is the
+paper's Table II network.
 
 ``--async`` routes the stream through the continuous-batching tier
 (``repro_torch.serve_async``): per-request futures, ``--workers``
@@ -25,12 +27,22 @@ in-process HTTP server (/metrics, /healthz, /spans) for scraping during
 the run, ``--trace [PATH]`` exports the span ring as a Chrome/Perfetto
 trace on exit, and ``--hold S`` keeps the server (and process) alive S
 extra seconds after serving.  Any of ``--metrics``/``--metrics-port``/
-``--trace`` enables the registry and attaches the SLO watchdog
-(``--slo-p95-ms``, flight-recorder artifacts in ``--watchdog-dir``);
-with none of them the hot path keeps its no-op instruments.  The
-JAX launcher's sampled telemetry and attribution passes are not ported,
-so the watchdog has no spike-rate calibration (its drift rule stays
-quiet).  ``--profile`` and ``--data-parallel`` are not ported yet.
+``--trace`` enables the registry and, before serving, runs two sampled
+forwards of 2 images: the telemetry pass (per-layer spike rate,
+saturation, silence and resets, ``layer_telemetry`` spans), whose rates
+become the SLO watchdog's spike-rate calibration, and the attribution
+pass (blocked wall time per node beside its H100 roofline prediction,
+``snn_layer_time_us`` and ``predicted_vs_measured`` spans).  After
+serving, the packed weights' code utilization is emitted
+(``code_utilization`` spans).  The watchdog takes ``--slo-p95-ms`` and
+writes flight-recorder artifacts to ``--watchdog-dir``.  With none of
+these flags the hot path keeps its no-op instruments.
+
+``--profile [DIR]`` traces the serving loop (sync or async) with
+``torch.profiler`` into DIR (default ``build/trace/serve_snn``): a
+Chrome/Perfetto JSON with the card's kernels and one
+``snn_serve_step/b<bucket>`` range per microbatch.
+``--data-parallel`` is not ported yet.
 
 ``--device`` defaults to ``cuda``; without a card the launcher raises
 unless ``--device cpu`` is given.
@@ -41,12 +53,18 @@ from __future__ import annotations
 import argparse
 import time
 
+import numpy as np
+
 
 def main(argv=None):
     from repro_torch import obs
+    from repro_torch.launch.profiling import (
+        TRACE_DIR, add_profile_flag, maybe_trace,
+    )
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", default="vgg9", choices=("vgg9", "resnet18"))
+    ap.add_argument("--model", default="vgg9",
+                    choices=("vgg9", "vgg16", "resnet18"))
     ap.add_argument("--fusion", default="off", choices=("off", "auto"),
                     help="multi-layer fusion groups (fused_group kernel)")
     ap.add_argument("--bits", type=int, default=4, choices=(2, 4, 8))
@@ -78,6 +96,7 @@ def main(argv=None):
                          "seeded Poisson arrival schedule (open loop) "
                          "instead of enqueueing everything up front "
                          "(with --async)")
+    add_profile_flag(ap, str(TRACE_DIR / "serve_snn"))
     obs.add_metrics_flag(ap, str(obs.ARTIFACT_DIR / "serve_snn.jsonl"))
     obs.add_server_flag(ap)
     ap.add_argument("--trace", nargs="?",
@@ -136,14 +155,6 @@ def main(argv=None):
 
         aeng = AsyncSNNServeEngine(eng, AsyncEngineConfig(
             workers=args.workers, default_deadline_ms=args.deadline_ms))
-    watchdog = None
-    if metrics_on:
-        watchdog = obs.Watchdog(
-            registry, cfg=obs.WatchdogConfig(
-                slo_p95_ms=args.slo_p95_ms,
-                artifact_dir=args.watchdog_dir or None))
-        eng.attach_watchdog(watchdog)
-
     server = None
     if args.metrics_port is not None:
         server = obs.ObsServer(registry, port=args.metrics_port,
@@ -151,9 +162,34 @@ def main(argv=None):
         port = server.start()
         print(f"[obs] serving http://127.0.0.1:{port}/metrics "
               f"(/healthz, /spans?since=N)")
+    watchdog = None
     try:
-        stats = _serve(args, cfg, eng, aeng)
-        if watchdog is not None:
+        n_warm = eng.warmup()
+        print(f"warmup ran {n_warm} bucket forwards: {eng.buckets}")
+        rng = np.random.default_rng(0)
+        sample = rng.random((2, cfg.img_size, cfg.img_size,
+                             cfg.in_channels)).astype(np.float32)
+        images = [rng.random((cfg.img_size, cfg.img_size,
+                              cfg.in_channels)).astype(np.float32)
+                  for _ in range(min(args.requests, 16))]
+        if metrics_on:
+            # before serving: the telemetry rates are the watchdog's
+            # calibration, and the attribution pass puts
+            # snn_layer_time_us on /metrics before the first scrape
+            watchdog = obs.Watchdog(
+                registry, calibration=_sampled_passes(
+                    cfg, model, sample, registry, device),
+                cfg=obs.WatchdogConfig(
+                    slo_p95_ms=args.slo_p95_ms,
+                    artifact_dir=args.watchdog_dir or None))
+            eng.attach_watchdog(watchdog)
+        with maybe_trace(args.profile, device):
+            stats = _serve(args, eng, aeng, images)
+        if metrics_on:
+            util = obs.package_code_utilization(model, registry=registry)
+            for name, h in util.items():
+                print(f"[obs] {name:<12} W{h['bits']} code util "
+                      f"{h['utilization']:.2f} clip {h['clip_frac']:.3f}")
             tripped = sorted({t["rule"] for t in watchdog.trips})
             print(f"[obs] watchdog: {watchdog.trips_total} trips"
                   + (f" ({', '.join(tripped)})" if tripped else ""))
@@ -178,19 +214,38 @@ def main(argv=None):
     return stats
 
 
-def _serve(args, cfg, eng, aeng):
-    """Warm every bucket, serve the synthetic stream (sync or async) and
-    print the stats line.  Returns the stats."""
-    import numpy as np
+def _sampled_passes(cfg, model, sample, registry, device):
+    """The sampled observability forwards over ``sample`` (2 images): the
+    telemetry pass, then the attribution pass, each printed.  Returns
+    the telemetry's per-layer spike rates, the watchdog's calibration:
+    live drift is judged against what the model did at deploy time."""
+    import torch
 
+    from repro_torch import obs
+
+    x = torch.from_numpy(sample).to(device)
+    _, layer_records = obs.instrumented_forward(
+        cfg, model.float_params, x, package=model, registry=registry)
+    for row in layer_records:
+        print(f"[obs] {row['layer']:<12} rate={row['rate']:.3f} "
+              f"saturation={row['saturation']:.3f} "
+              f"silent={row['silent']:.3f} resets={row['resets']}")
+    _, timed_records = obs.timed_forward(
+        cfg, model.float_params, x, package=model, registry=registry)
+    summ = obs.attribution_summary(timed_records)
+    print(f"[obs] attribution: {summ['nodes']} nodes, "
+          f"{summ['wall_us'] / 1e3:.3f} ms measured vs "
+          f"{summ['predicted_us']:.1f} us H100 roofline "
+          f"(hottest {summ['hottest_layer']} "
+          f"{summ['hottest_wall_us'] / 1e3:.3f} ms)")
+    return {row["layer"]: row["rate"] for row in layer_records}
+
+
+def _serve(args, eng, aeng, images):
+    """Serve the synthetic stream (sync or async) on a warm engine and
+    print the stats line.  Returns the stats."""
     from repro_torch.deploy import SNNRequest
 
-    n_warm = eng.warmup()
-    print(f"warmup ran {n_warm} bucket forwards: {eng.buckets}")
-    rng = np.random.default_rng(0)
-    images = [rng.random((cfg.img_size, cfg.img_size,
-                          cfg.in_channels)).astype(np.float32)
-              for _ in range(min(args.requests, 16))]
     if aeng is not None:
         from repro_torch.serve_async import (
             poisson_schedule, run_open_loop_async,

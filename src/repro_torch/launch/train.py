@@ -6,15 +6,17 @@ Port of ``repro.launch.train``, with the same flags plus ``--device``:
         [--smoke] [--steps 50] [--batch 8] [--seq 128] [--lr 3e-4] \
         [--quant-bits 16|2|4|8] [--spiking-ffn] [--ckpt-dir DIR] \
         [--resume] [--metrics [PATH]] [--metrics-port PORT] \
-        [--device cuda|cpu]
+        [--profile [DIR]] [--device cuda|cpu]
 
 ``--quant-bits 2|4|8`` trains with QAT fake-quant (one scale per output
 channel), ``--spiking-ffn`` runs every FFN as a LIF population.  Without
 ``--resume`` the checkpoint directory (default ``build/ckpt/train``) is
 emptied first; with it, training resumes from its newest checkpoint.
-``--device`` defaults to ``cuda``; without a card the launcher raises
-unless ``--device cpu`` is given.  The JAX launcher's ``--profile`` is
-not ported yet.
+``--profile [DIR]`` traces the whole ``Trainer.run()`` with
+``torch.profiler`` into DIR (default ``build/trace/train``), a
+Chrome/Perfetto JSON with the card's kernels.  ``--device`` defaults to
+``cuda``; without a card the launcher raises unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
@@ -24,6 +26,9 @@ import argparse
 
 def main(argv=None):
     from repro_torch import obs
+    from repro_torch.launch.profiling import (
+        TRACE_DIR, add_profile_flag, maybe_trace,
+    )
     from repro_torch.train.trainer import DEFAULT_CKPT_DIR
 
     ap = argparse.ArgumentParser()
@@ -41,6 +46,7 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=DEFAULT_CKPT_DIR)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--device", default="cuda")
+    add_profile_flag(ap, str(TRACE_DIR / "train"))
     obs.add_metrics_flag(ap, str(obs.ARTIFACT_DIR / "train.jsonl"))
     obs.add_server_flag(ap)
     args = ap.parse_args(argv)
@@ -83,7 +89,9 @@ def main(argv=None):
         print(f"[obs] serving http://127.0.0.1:{port}/metrics "
               f"(/healthz, /spans?since=N)")
     try:
-        out = Trainer(cfg, tcfg, device=device).run()
+        trainer = Trainer(cfg, tcfg, device=device)
+        with maybe_trace(args.profile, device):
+            out = trainer.run()
         print(f"first loss {out['first_loss']:.4f} -> "
               f"final loss {out['final_loss']:.4f}")
         if args.metrics:

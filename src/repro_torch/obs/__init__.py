@@ -1,13 +1,17 @@
 """Runtime observability: metrics registry, request tracing, watchdogs.
 
-Port of the framework-free half of ``repro.obs``.  One registry serves
+Port of ``repro.obs``.  One registry serves
 the runtime surfaces:
 
   * the serve engine (deploy/engine.py) traces requests through
     enqueue -> admit -> compile hit/miss -> step -> drain and keeps
     queue-depth / batch-occupancy / padding-waste gauges current;
   * the async tier (serve_async/) adds ``evict`` / ``recycle`` spans,
-    slot-occupancy and in-flight gauges and submit/evict/cancel counters.
+    slot-occupancy and in-flight gauges and submit/evict/cancel counters;
+  * the graph layer yields per-layer spike rates, saturation/reset
+    counts and weight code-utilization histograms for any executor via
+    :class:`~repro_torch.obs.telemetry.TelemetryExecutor`, with no
+    kernel changes.
 
 The live plane sits on top of the same registry:
 
@@ -18,13 +22,12 @@ The live plane sits on top of the same registry:
   * :mod:`~repro_torch.obs.chrometrace` — the span ring exported as a
     Chrome/Perfetto ``trace_event`` JSON, requests flow-connected
     enqueue -> drain;
-  * :class:`~repro_torch.obs.watchdog.Watchdog` — EWMA-baselined SLO
-    monitors that dump a flight-recorder artifact on trip.
-
-Not ported yet: ``attribution`` (per-layer time against a roofline,
-which needs the H100's constants in a ported ``perfmodel/roofline.py``)
-and ``telemetry`` (per-layer spike rates and code utilization, which
-needs a wrapped executor).
+  * :class:`~repro_torch.obs.attribution.AttributionExecutor` — per-layer
+    blocked-wall-time attribution joined against the H100 roofline
+    prediction (``snn_layer_time_us``, ``predicted_vs_measured``);
+  * :class:`~repro_torch.obs.watchdog.Watchdog` — EWMA-baselined SLO and
+    spike-rate drift monitors that dump a flight-recorder artifact on
+    trip.
 
 The process default registry is DISABLED until something opts in
 (``--metrics`` on a launcher, :func:`enable_default` in code); disabled,
@@ -35,6 +38,12 @@ emitted JSONL artifacts (``--trace`` for Chrome trace exports).
 
 from pathlib import Path
 
+from repro_torch.obs.attribution import (  # noqa: F401
+    AttributionExecutor,
+    attribution_summary,
+    predict_node_us,
+    timed_forward,
+)
 from repro_torch.obs.chrometrace import (  # noqa: F401
     export_chrome_trace,
     span_to_events,
@@ -64,6 +73,13 @@ from repro_torch.obs.server import (       # noqa: F401
     PROMETHEUS_CONTENT_TYPE,
     ObsServer,
     add_server_flag,
+)
+from repro_torch.obs.telemetry import (    # noqa: F401
+    TelemetryExecutor,
+    code_histogram,
+    instrumented_forward,
+    package_code_utilization,
+    spike_stats,
 )
 from repro_torch.obs.watchdog import (     # noqa: F401
     Watchdog,
