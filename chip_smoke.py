@@ -120,7 +120,9 @@
    the CUDA-core variant), at each of the serve phase's prompt lengths
    (summed by variant), at M=256 and at M=4096 (the INT4-KV prefill; the
    chosen variant and tile are printed), ``kv_attention`` at a decode
-   step (also with a sliding window and a logit cap).
+   step (also with a sliding window and a logit cap).  The same for the
+   other LM families at their served shapes (``families_kernel_phase``,
+   right after olmo's; see 7.).
 
 6. olmo-1b training (``train_phase``, after the serve phases' params
    are freed), every line beside the card's name and power limit:
@@ -141,6 +143,40 @@
      the fake-quant forward of the same checkpoint, its quantizer in
      float32 (printed beside: the bf16 fake-quant forward, not
      asserted); the checkpoint directories are deleted.
+
+7. The LM families beyond the dense ones (``families_phase``, after 6.
+   and before the obs phase), each at full width, bf16, random weights
+   from seed 0, its linears packed to W4 (``pack_lm``: every
+   ``layers.linear`` weight; MoE's stacked experts, the router and the
+   SSM conv taps stay dense), every line beside the card:
+   - granite-moe-3b-a800m (128 ``packed_qmatmul`` a forward; prefills
+     on the dispatch path, decode steps on the dense mix), mamba2-1.3b
+     (96) and hymba-1.5b (288), each served by ``ServeEngine(slots=8,
+     max_len=1024)`` with a bf16 KV cache, 8 requests of
+     ``serve_prompts`` and 16 new tokens: tokens/s, p50 / p95, every
+     logit vector within 0.10 / 0.15 of the same requests re-served on
+     the plain path, fed the same tokens and, for MoE, routed to the
+     experts the served run chose (``forced_engine``, ``routing_log``;
+     printed beside: the share of (token, layer) top-k sets the plain
+     path's own router would have picked otherwise);
+   - hymba-1.5b with an INT4 KV cache, a uniform batch of 4 x 1024
+     tokens and 16 decode steps across its 1024 window (32
+     ``kv_attention`` a step), paligemma-3b with an INT4 KV cache, 4 x
+     (256 random vision embeddings + 64 tokens) and 16 steps (127
+     ``packed_qmatmul`` at prefill, 126 and 18 ``kv_attention`` at
+     head_dim 256, G 8 a step), both within 0.25 / 0.30; whisper-base,
+     ``encode`` of 4 x 1500 stub frames in the prefill of a 4-token
+     prompt, the cache padded to 448, 32 decode steps, bf16 KV (96 at
+     prefill, 48 a step), within 0.10 / 0.15;
+   - a profiled decode step of each engine run.
+   Each family's decode-layer linears at M=8 and ``kv_attention`` at
+   Hymba's and PaliGemma's caches are held against the plain versions
+   and timed, and the linears held against the plain version at every
+   other M these runs give them (prefills, encode, uniform decode at
+   M=4), by ``families_kernel_phase``, which runs beside olmo's kernel
+   phase: after the serving and training phases the profiler misses
+   launches.
+   moonshot-v1-16b-a3b (~56 GB in bf16) is held only on the CPU.
 
 Exits non-zero on any failure and without a card.  The line before the
 last is the kernels' JSON record; the last line is
@@ -178,50 +214,56 @@ def _median_ms(fn, iters=20, reps=5):
 def _device_ms(fn, match="", reps=10, per_call=None):
     """Device time per call of ``fn``: the summed time of the CUDA kernels
     (and copies) it runs, from torch.profiler, counting only events whose
-    name contains ``match``.  Each profile runs one call as a warmup
-    step (tracing on, its events dropped) before the ``reps`` calls it
-    keeps, the profiler's schedule for keeping start-up effects out of
-    the window: without it, a profile of ``packed_qmatmul`` on the H100
-    now and then caught 69 of 70 launches in all 3 tries.  The profiler may still drop
-    events, so a profile is taken again (5 tries) when it holds no device
-    time or, with ``per_call`` (the launches under ``match`` one call
-    makes), not ``reps * per_call`` of them.  Raises when the profiler saw
-    device time but none under ``match`` (a renamed kernel) or never the
-    expected count; falls back to the CUDA-event wall time only when the
-    profiler reports no device time at all."""
+    name contains ``match``.  Each profile holds ``reps`` calls between
+    two ~10 ms spins of the card (``window``): a profile that starts
+    with the kept calls loses the first launch (69 of 70 on the H100).
+    Late in a run, after the serving and training phases, profiles lose
+    launches whatever the spin (31 of 40, 78 of 90, the same count at
+    each try, with spins up to ~160 ms and with ``gc.collect()`` before
+    each; why is not known), so the kernel phases run first.  A profile
+    is taken again (5 tries, a try after the first printed) when it holds
+    no device time or, with ``per_call`` (the launches under ``match``
+    one call makes), not ``reps * per_call`` of them.  Raises when the
+    profiler saw device time but none under ``match`` (a renamed kernel)
+    or never the expected count; falls back to the CUDA-event wall time
+    only when the profiler reports no device time at all."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    tries = 5
-    for _ in range(tries):
-        kept = []      # the active step's events, handed over at its end
-        with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1),
-                     on_trace_ready=lambda p: kept.append(p.key_averages())
-                     ) as prof:
+    def window():
+        """The reps between two ~10 ms spins of the card (CUDA's
+        ``spin_kernel``, left out of every count and sum)."""
+        torch.cuda._sleep(20_000_000)
+        for _ in range(reps):
             fn()
-            torch.cuda.synchronize()
-            prof.step()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-        events = [e for e in kept[0]
-                  if e.device_type == DeviceType.CUDA]
+        torch.cuda._sleep(20_000_000)
+        torch.cuda.synchronize()
+
+    tries, counts = 5, []
+    for attempt in range(tries):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            window()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and "spin_kernel" not in e.key]
         hits = [e for e in events if match in e.key]
         us = sum(e.self_device_time_total for e in hits)
         seen = sum(e.count for e in hits)
+        counts.append(seen)
         if us > 0 and per_call in (None, seen / reps):
+            if attempt:
+                print(f"  (profiler caught {counts} launches under "
+                      f"{match!r} in {attempt + 1} tries)", flush=True)
             return us / reps / 1e3
         if us <= 0 and any(e.self_device_time_total > 0 for e in events):
             raise AssertionError(
                 f"profiler saw device time but no kernel matching "
                 f"{match!r}: " + ", ".join(e.key[:60] for e in events))
     if us > 0:
-        raise AssertionError(f"profiler caught {seen} launches under "
+        raise AssertionError(f"profiler caught {counts} launches under "
                              f"{match!r} in {tries} tries, expected "
                              f"{reps * per_call}")
     print(f"  (profiler gave no device time for {match or 'call'}; "
@@ -234,8 +276,8 @@ def _only_kernels(fn, kernels, calls=10):
     ``kernels``, one each (and no copy or fill): torch.profiler over
     ``calls`` calls (after a warm-up call) must show those kernels alone,
     each at most once a call (the launch counters show they run once a
-    call).  The profiler now and then drops events, so a profile that
-    caught none is taken again (5 tries)."""
+    call).  A profile that caught no event is taken again (5
+    tries)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -778,18 +820,36 @@ def nce_step_phase(dev, gen):
 def pack_lm(params, bits, clip_search=True):
     """Every linear of the LM packed to ``bits`` with one scale per output
     row (the port's ``quantize`` on W.T, as NeuronComputeEngine.from_float
-    packs); the dense weights are dropped as each layer is packed.
-    ``clip_search=False`` keeps each row's absmax scale, the grid QAT's
-    fake-quant trains against (the search moves a W2/W4 row's clip to
-    its MSE optimum)."""
+    packs): each ``{"w": ...}`` dict of a 2-D weight (attention, dense
+    MLP, SSM in/out projections, ``vision_proj``, whisper's attention,
+    cross-attention and MLP) and MoE's shared experts, all of which go
+    through ``layers.linear``; the stacked experts, router, conv taps,
+    norms, embeddings and an untied ``lm_head`` stay dense.  The dense
+    weights are dropped as each is packed.  ``clip_search=False`` keeps
+    each row's absmax scale, the grid QAT's fake-quant trains against
+    (the search moves a W2/W4 row's clip to its MSE optimum).  Returns
+    ``params``."""
+    import torch
+
     from repro_torch.quant.formats import PrecisionConfig
     from repro_torch.quant.ptq import quantize
 
     pc = PrecisionConfig(bits=bits, group_size=-1, clip_search=clip_search)
-    for lp in params["layers"]:
-        for blk in ("attn", "mlp"):
-            for lin in lp[blk].values():
-                lin["w"] = quantize(lin["w"].T.float(), pc)
+
+    def walk(tree):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for key, v in list(items):
+            if key == "lm_head":
+                continue
+            if isinstance(v, dict) and torch.is_tensor(v.get("w")) \
+                    and v["w"].ndim == 2:
+                v["w"] = quantize(v["w"].T.float(), pc)
+            elif isinstance(v, (dict, list)):
+                walk(v)
+            elif isinstance(key, str) and key.startswith("shared_w"):
+                tree[key] = quantize(v.T.float(), pc)
+
+    walk(params)
     return params
 
 
@@ -829,11 +889,15 @@ def plain_kernels(dtype=None):
 
 
 def _pad_cache(cache, max_len):
+    """The K/V entries of a prefill cache padded to ``max_len`` positions;
+    an SSM layer's conv inputs and state and whisper's cross cache have
+    no length and stay as they are."""
     import torch.nn.functional as F
 
     out = dict(cache)
-    for k, v in cache.items():
-        if k != "len":
+    for k in ("k", "v", "k_scale", "v_scale"):
+        if k in cache:
+            v = cache[k]
             out[k] = F.pad(v, (0, 0) * (v.ndim - 3) +
                            (0, max_len - v.shape[2]))
     return out
@@ -1125,6 +1189,83 @@ def lm_int4_kv_phase(dev, cfg, params):
         decode_tokens_per_s=b * n_steps / decode_s)
 
 
+class LayerLinears:
+    """A model's packed linears, one list a layer: ``check`` holds them
+    against the plain version at M rows of bf16 x, ``at`` also times them
+    cold: each timed call takes the next layer's weights, so the data
+    comes from HBM as on the served path.  ``library_ms`` is bf16
+    ``torch.matmul`` on the dequantized weights."""
+
+    def __init__(self, dev, gen, layers):
+        import itertools
+
+        self.dev, self.gen, self.layers = dev, gen, layers
+        self.order = itertools.cycle(range(len(layers)))
+        self.dense = None          # the dequantized weights, made by ``at``
+
+    def check(self, m, check_all=False):
+        """Every linear of every layer (or of layer 0) at M=m against the
+        plain version, at the CUDA test's tolerance: a bf16 ulp + 1e-4 of
+        the scale.  Returns (x a linear, the variants, max |err|)."""
+        import torch
+
+        from repro_torch.kernels.packed_qmatmul import ops as qmm_ops
+        from repro_torch.kernels.packed_qmatmul import ref as qmm_ref
+
+        layers = self.layers
+        xs = [torch.randn((m, qt.shape[1]), generator=self.gen,
+                          device=self.dev, dtype=torch.bfloat16)
+              for qt in layers[0]]
+        variants = sorted({
+            qmm_ops._variant(m, x.dtype, qt.group_size) +
+            ("" if m < qmm_ops.MMA_MIN_M else " %dx%d" % qmm_ops._mma_tile(
+                m, qt.shape[0], qt.n_groups > 1))
+            for x, qt in zip(xs, layers[0])})
+        err = 0.0
+        for qts in (layers if check_all else layers[:1]):
+            for x, qt in zip(xs, qts):
+                got = qmm_ops.qmatmul(x, qt).float()
+                ref = qmm_ref.qmatmul_ref(x, qt).float()
+                bad = float(((got - ref).abs() - 2.0 ** -7 * ref.abs()).max())
+                if bad > 1e-4 * float(ref.abs().max()):
+                    raise AssertionError(f"packed_qmatmul m={m} {qt.shape}: "
+                                         f"off the plain version")
+                err = max(err, float((got - ref).abs().max()))
+        return xs, variants, err
+
+    def at(self, m, check_all=False):
+        """One layer's linears at M=m: checked (``check``), then timed
+        cold.  Returns (row, max |err|, the timed call, bytes)."""
+        import torch
+
+        from repro_torch.kernels.packed_qmatmul import ops as qmm_ops
+        from repro_torch.kernels.packed_qmatmul import ref as qmm_ref
+        from repro_torch.perfmodel.roofline import PEAK_FLOPS
+
+        layers, order = self.layers, self.order
+        xs, variants, err = self.check(m, check_all)
+        run = lambda: [qmm_ops.qmatmul(x, qt)
+                       for x, qt in zip(xs, layers[next(order)])]
+        # both variants' kernels are named qmatmul_<variant>_kernel
+        r = dict(ms=_device_ms(run, "qmatmul_", per_call=len(xs)))
+        r["plain_ms"] = _device_ms(
+            lambda: [qmm_ref.qmatmul_ref(x, qt)
+                     for x, qt in zip(xs, layers[next(order)])], reps=3)
+        if self.dense is None:
+            self.dense = [[qmm_ref.dequant_w(qt).T.to(torch.bfloat16)
+                           .contiguous() for qt in qts] for qts in layers]
+        r["library_ms"] = _device_ms(lambda: [
+            torch.matmul(x, w) for x, w in zip(xs, self.dense[next(order)])])
+        nbytes = sum(4 * (qt.data.numel() + qt.scale.numel())
+                     + 2 * m * (qt.shape[0] + qt.shape[1])
+                     for qt in layers[0])
+        flops = sum(2 * m * qt.shape[0] * qt.shape[1] for qt in layers[0])
+        r["bound_ms"], r["bytes_ms"], r["ops_ms"] = _bound_ms(
+            nbytes, flops, PEAK_FLOPS)
+        r["variant"] = ", ".join(variants)
+        return r, err, run, nbytes
+
+
 def lm_kernel_phase(dev, cfg, params):
     """packed_qmatmul and kv_attention against their plain versions and
     timed at the served path's shapes: the 7 linears of one layer at M=8
@@ -1138,67 +1279,19 @@ def lm_kernel_phase(dev, cfg, params):
     the served path, the data is cold: each timed call takes the next
     layer's weights (33.6 MB a layer, 537 MB in all) or the next of 8
     caches (144 MB), more than the 50 MB L2 holds."""
-    import itertools
-
     import torch
-    import torch.nn.functional as F
 
-    from repro_torch.kernels.kv_attention import ops as kv_ops
-    from repro_torch.kernels.kv_attention import ref as kv_ref
     from repro_torch.kernels.packed_qmatmul import ops as qmm_ops
-    from repro_torch.kernels.packed_qmatmul import ref as qmm_ref
-    from repro_torch.perfmodel.roofline import PEAK_FLOPS
 
     gen = torch.Generator(device=dev).manual_seed(2)
     layers = [[lin["w"] for blk in ("attn", "mlp") for lin in lp[blk].values()]
               for lp in params["layers"]]
-    dense = [[qmm_ref.dequant_w(qt).T.to(torch.bfloat16).contiguous()
-              for qt in qts] for qts in layers]
-    order = itertools.cycle(range(len(layers)))
-
-    def layer_at(m, check_all=False):
-        """One layer's 7 linears at M=m: checked against the plain
-        version (every layer, or layer 0), then timed cold."""
-        xs = [torch.randn((m, qt.shape[1]), generator=gen, device=dev,
-                          dtype=torch.bfloat16) for qt in layers[0]]
-        variants = sorted({
-            qmm_ops._variant(m, x.dtype, qt.group_size) +
-            ("" if m < qmm_ops.MMA_MIN_M else " %dx%d" % qmm_ops._mma_tile(
-                m, qt.shape[0], qt.n_groups > 1))
-            for x, qt in zip(xs, layers[0])})
-        err = 0.0
-        for qts in (layers if check_all else layers[:1]):
-            for x, qt in zip(xs, qts):
-                got = qmm_ops.qmatmul(x, qt).float()
-                ref = qmm_ref.qmatmul_ref(x, qt).float()
-                # the CUDA test's tolerance: a bf16 ulp + 1e-4 of the scale
-                bad = float(((got - ref).abs() - 2.0 ** -7 * ref.abs()).max())
-                if bad > 1e-4 * float(ref.abs().max()):
-                    raise AssertionError(f"packed_qmatmul m={m} {qt.shape}: "
-                                         f"off the plain version")
-                err = max(err, float((got - ref).abs().max()))
-        run = lambda: [qmm_ops.qmatmul(x, qt)
-                       for x, qt in zip(xs, layers[next(order)])]
-        # both variants' kernels are named qmatmul_<variant>_kernel
-        r = dict(ms=_device_ms(run, "qmatmul_", per_call=len(xs)))
-        r["plain_ms"] = _device_ms(
-            lambda: [qmm_ref.qmatmul_ref(x, qt)
-                     for x, qt in zip(xs, layers[next(order)])], reps=3)
-        r["library_ms"] = _device_ms(lambda: [torch.matmul(x, w) for x, w in
-                                              zip(xs, dense[next(order)])])
-        nbytes = sum(4 * (qt.data.numel() + qt.scale.numel())
-                     + 2 * m * (qt.shape[0] + qt.shape[1])
-                     for qt in layers[0])
-        flops = sum(2 * m * qt.shape[0] * qt.shape[1] for qt in layers[0])
-        r["bound_ms"], r["bytes_ms"], r["ops_ms"] = _bound_ms(
-            nbytes, flops, PEAK_FLOPS)
-        r["variant"] = ", ".join(variants)
-        return r, err, run, nbytes
+    linears = LayerLinears(dev, gen, layers)
 
     rows, errs = {"packed_qmatmul": {}}, {"packed_qmatmul": 0.0}
     for m, geo in ((8, "decode layer"), (256, "prefill layer m256"),
                    (4096, "prefill layer m4096")):
-        r, err, run, nbytes = layer_at(m, check_all=m == 8)
+        r, err, run, nbytes = linears.at(m, check_all=m == 8)
         checked = f"all {len(layers)} layers" if m == 8 else "layer 0"
         print(f"  packed_qmatmul layer (7 linears) m={m} w4 bf16, cold, "
               f"variant {r['variant']}: kernel {r['ms']:.4f} ms (wrapper "
@@ -1213,7 +1306,7 @@ def lm_kernel_phase(dev, cfg, params):
     # summed by variant
     by_variant = {}
     for m in sorted(len(p) for p in serve_prompts(cfg)):
-        r, err, _, _ = layer_at(m)
+        r, err, _, _ = linears.at(m)
         print(f"  packed_qmatmul layer m={m} (a serve prefill), variant "
               f"{r['variant']}: kernel {r['ms']:.4f} ms | plain "
               f"{r['plain_ms']:.4f} ms | library {r['library_ms']:.4f} ms | "
@@ -1243,10 +1336,36 @@ def lm_kernel_phase(dev, cfg, params):
               f"prompts | plain {acc['plain_ms']:.4f} | library "
               f"{acc['library_ms']:.4f} | bound {acc['bound_ms']:.5f}",
               flush=True)
-    del dense
+    del linears
 
-    b, s_len, kh, hd, bits, live = 8, 1024, cfg.n_kv, cfg.head_dim, 4, 544
-    h = cfg.n_heads
+    rows["kv_attention"], errs["kv_attention"] = {}, 0.0
+    r, errs["kv_attention"] = kv_row(
+        dev, gen, "olmo-1b", b=8, s_len=1024, live=544, h=cfg.n_heads,
+        kh=cfg.n_kv, hd=cfg.head_dim, checks=((256, None), (0, 50.0),
+                                              (256, 50.0)))
+    rows["kv_attention"]["decode"] = r
+    return rows, errs
+
+
+def kv_row(dev, gen, label, *, b, s_len, live, h, kh, hd, window=0,
+           checks=()):
+    """``kv_attention`` over an INT4 cache of B x s_len positions, ``live``
+    of them filled, at the served ``window``: held against the plain
+    version (also at each (window, logit cap) of ``checks``) and timed
+    cold (each call takes the next of 8 caches).  ``library_ms`` is SDPA
+    on the dequantized bf16 cache, its KV heads repeated to the query
+    heads and the window as a mask.  The bound counts the keys the
+    window leaves.  Returns (row, max |err|)."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.kv_attention import ops as kv_ops
+    from repro_torch.kernels.kv_attention import ref as kv_ref
+    from repro_torch.perfmodel.roofline import PEAK_FLOPS
+
+    bits = 4
     q = torch.randn((b, 1, h, hd), generator=gen, device=dev,
                     dtype=torch.bfloat16)
     caches = []
@@ -1256,16 +1375,16 @@ def lm_kernel_phase(dev, cfg, params):
         caches.append(kv_ref.quantize_kv(k, bits) + kv_ref.quantize_kv(v, bits))
     kp, ks, vp, vs = caches[0]
     err = 0.0
-    for window, cap in ((0, None), (256, None), (0, 50.0), (256, 50.0)):
-        kw = dict(bits=bits, scale=hd ** -0.5, cache_len=live, window=window,
+    for win, cap in ((window, None),) + tuple(checks):
+        kw = dict(bits=bits, scale=hd ** -0.5, cache_len=live, window=win,
                   logit_cap=cap)
         got = kv_ops.quant_kv_decode_attention(q, kp, ks, vp, vs, **kw)
         ref = kv_ref.quant_kv_decode_attention_ref(q, kp, ks, vp, vs, **kw)
         torch.testing.assert_close(got.float(), ref.float(), atol=1e-2,
                                    rtol=2e-2)
-        if window == 0 and cap is None:
+        if (win, cap) == (window, None):
             err = float((got.float() - ref.float()).abs().max())
-    kw = dict(bits=bits, scale=hd ** -0.5, cache_len=live)
+    kw = dict(bits=bits, scale=hd ** -0.5, cache_len=live, window=window)
     order = itertools.cycle(range(len(caches)))
     run = lambda: kv_ops.quant_kv_decode_attention(
         q, *caches[next(order)], **kw)
@@ -1273,28 +1392,605 @@ def lm_kernel_phase(dev, cfg, params):
     plain_ms = _device_ms(lambda: kv_ref.quant_kv_decode_attention_ref(
         q, *caches[next(order)], **kw), reps=3)
     dense = [[kv_ref.dequantize_kv(p[:, :live], sc[:, :live], bits, hd)
-              .transpose(1, 2).contiguous() for p, sc in ((c[0], c[1]),
-                                                         (c[2], c[3]))]
+              .transpose(1, 2).repeat_interleave(h // kh, dim=1)
+              .contiguous() for p, sc in ((c[0], c[1]), (c[2], c[3]))]
              for c in caches]
+    keys = min(live, window) if window else live
+    mask = None
+    if keys < live:
+        mask = (torch.arange(live, device=dev) >= live - keys)[None, None,
+                                                               None]
     qd = q.transpose(1, 2).contiguous()
     lib_ms = _device_ms(lambda: F.scaled_dot_product_attention(
-        qd, *dense[next(order)], scale=hd ** -0.5))
-    nbytes = (b * live * kh * (2 * kp.shape[-1] * 4 + 2 * 4)
+        qd, *dense[next(order)], attn_mask=mask, scale=hd ** -0.5))
+    nbytes = (b * keys * kh * (2 * kp.shape[-1] * 4 + 2 * 4)
               + 2 * q.numel() * 2)
-    flops = 4 * b * h * live * hd
+    flops = 4 * b * h * keys * hd
     bound, t_b, t_o = _bound_ms(nbytes, flops, PEAK_FLOPS)
-    rows["kv_attention"] = {"decode": dict(
-        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
-        bytes_ms=t_b, ops_ms=t_o)}
-    errs["kv_attention"] = err
-    print(f"  kv_attention B={b} H={h} K={kh} hd={hd} int4, {live} of "
-          f"{s_len} keys live, cold: kernel {ms:.4f} ms (wrapper call "
-          f"{_median_ms(run):.4f} ms wall) | plain {plain_ms:.4f} ms | "
-          f"sdpa on the dequantized bf16 cache {lib_ms:.4f} ms | bound "
-          f"{bound:.5f} ms (bytes {t_b:.5f}, flops {t_o:.6f}; {nbytes} B) | "
-          f"max |err| {err:.3e}; window 256 and logit cap 50 within "
-          f"tolerance", flush=True)
+    print(f"  kv_attention {label} B={b} H={h} K={kh} hd={hd} int4, {live} "
+          f"of {s_len} keys live, window {window or 'none'}, cold: kernel "
+          f"{ms:.4f} ms (wrapper call {_median_ms(run):.4f} ms wall) | plain "
+          f"{plain_ms:.4f} ms | sdpa on the dequantized bf16 cache "
+          f"{lib_ms:.4f} ms | bound {bound:.5f} ms (bytes {t_b:.5f}, flops "
+          f"{t_o:.6f}; {nbytes} B) | max |err| {err:.3e}"
+          + (f"; (window, logit cap) {list(checks)} within tolerance"
+             if checks else ""), flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                bytes_ms=t_b, ops_ms=t_o), err
+
+
+def _lm_counters():
+    from repro_torch.kernels.kv_attention import ops as kv_ops
+    from repro_torch.kernels.packed_qmatmul import ops as qmm_ops
+
+    return {"packed_qmatmul": qmm_ops.qmatmul,
+            "kv_attention": kv_ops.quant_kv_decode_attention}
+
+
+def _lm_launches():
+    """The two LM kernels' launch counts (the plain versions that
+    ``plain_kernels`` swaps in count nothing)."""
+    return {k: getattr(f, "launches", 0) for k, f in _lm_counters().items()}
+
+
+def _zero_lm_launches():
+    for f in _lm_counters().values():
+        f.launches = 0
+
+
+@contextlib.contextmanager
+def routing_log(replay=None):
+    """Record the top-k experts (a ``(..., k)`` index tensor on the card)
+    of every MoE router call, in call order.  With ``replay``, such a log
+    of another run, each call takes the recorded call's experts instead
+    of its own: the gates are this run's router probabilities at those
+    experts, renormalized as ``moe._router`` does, so two runs that sum
+    in other orders still run the same experts on every token.  The log
+    then holds the run's own choices; the shapes and the number of calls
+    must match the replayed run's."""
+    import torch
+
+    from repro_torch.models import moe
+
+    log, orig = [], moe._router
+    calls = None if replay is None else iter(replay)
+
+    def routed(p, x, cfg):
+        gates, idx, aux = orig(p, x, cfg)
+        log.append(idx)
+        if calls is None:
+            return gates, idx, aux
+        want = next(calls, None)
+        if want is None or want.shape != idx.shape:
+            theirs = None if want is None else tuple(want.shape)
+            raise AssertionError(f"router call {len(log)}: "
+                                 f"{tuple(idx.shape)} routings, the "
+                                 f"replayed run's {theirs}")
+        probs = torch.softmax(x.to(torch.float32) @ p["router"], dim=-1)
+        gates = torch.gather(probs, -1, want)
+        gates = gates / torch.clamp_min(torch.sum(gates, -1, keepdim=True),
+                                        1e-9)
+        return gates, want, aux
+
+    moe._router = routed
+    try:
+        yield log
+    finally:
+        moe._router = orig
+    if replay is not None and len(log) != len(replay):
+        raise AssertionError(f"{len(log)} router calls, the replayed run "
+                             f"made {len(replay)}")
+
+
+def routing_flips(own, replayed):
+    """The (token, layer) routings of a replaying run whose own top-k set
+    differs from the replayed one's, and the routings in all."""
+    import torch
+
+    flips = sum(int((torch.sort(a, -1).values != torch.sort(b, -1).values)
+                    .any(-1).sum()) for a, b in zip(own, replayed))
+    return flips, sum(a.numel() // a.shape[-1] for a in own)
+
+
+class PrefillLaunches:
+    """An engine's model with the LM kernels' launches in its prefills
+    counted apart."""
+
+    def __init__(self, mb):
+        self.mb = mb
+        self.launches = {k: 0 for k in _lm_counters()}
+        self.prompts = 0
+
+    def __getattr__(self, name):
+        return getattr(self.mb, name)
+
+    def prefill(self, params_, batch):
+        n0 = _lm_launches()
+        out = self.mb.prefill(params_, batch)
+        for k, n in _lm_launches().items():
+            self.launches[k] += n - n0[k]
+        self.prompts += 1
+        return out
+
+
+def _layer_linears(lp):
+    """A layer's packed linears in tree order."""
+    from repro_torch.quant.formats import QuantizedTensor
+
+    out = []
+    for v in lp.values():
+        if isinstance(v, QuantizedTensor):
+            out.append(v)
+        elif isinstance(v, dict):
+            out += _layer_linears(v)
+    return out
+
+
+def forced_engine(params, cfg, reqs, dev, dtype=None, routes=()):
+    """``reqs`` served again by a ``ServeEngine`` like the one that served
+    them (8 slots, so all are admitted at once and decode in the same
+    ragged batches), each fed the tokens it was given, through the plain
+    versions (``plain_kernels(dtype)``), each MoE router call taking the
+    experts of the served run's (``routes``, ``routing_log``).  Returns
+    the logits at every sampled position and the run's own routing
+    log."""
+    import numpy as np
+
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    class Forced(ServeEngine):
+        admitted = 0
+
+        def _sample(self, logits):
+            if logits.shape[0] == 1:           # a prefill, in queue order
+                self.admitted += 1
+                return np.array([reqs[self.admitted - 1].output[0]])
+            return np.array([0 if r is None else
+                             tokens[r.uid][self.slot_pos[i]]
+                             for i, r in enumerate(self.slot_req)])
+
+    tokens = {r.uid: r.output for r in reqs}
+    eng = Forced(cfg, params, EngineConfig(slots=len(reqs), max_len=1024,
+                                           keep_logits=True), device=dev)
+    for r in reqs:
+        eng.add_request(Request(uid=r.uid, prompt=r.prompt,
+                                max_new_tokens=len(r.output)))
+    with plain_kernels(dtype), routing_log(routes) as own:
+        eng.run_until_done()
+    if any(eng.done[r.uid].output != r.output for r in reqs):
+        raise AssertionError("forced engine run left the given tokens")
+    return [eng.done[r.uid].logits for r in reqs], own
+
+
+def family_serve_run(dev, card, name, cfg, params, per_fwd):
+    """``ServeEngine(slots=8, max_len=1024)``, bf16 KV: 8 requests of
+    ``serve_prompts`` (16-256 tokens; one SSM chunk), 16 new tokens each.
+    ``per_fwd`` ``packed_qmatmul`` launches a prefill and a decode step
+    and no ``kv_attention``, asserted; tokens/s, p50 / p95; every logit
+    vector held against the same requests re-served on the plain path,
+    fed the same tokens and, for MoE, routed to the same experts
+    (``forced_engine``): a change of summation order flips the top-k set
+    of a router's near ties, and a token sent to other experts is off by
+    as much as a wrong kernel.  The limits are 0.10 / 0.15 relative
+    RMS / max.  Returns (decode launches, prefill launches, metrics)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    eng = ServeEngine(cfg, params, EngineConfig(slots=8, max_len=1024,
+                                                keep_logits=True),
+                      device=dev)
+    eng.add_request(Request(uid=-1, prompt=np.arange(16, dtype=np.int32),
+                            max_new_tokens=2))      # warm-up, not counted
+    eng.run_until_done()
+    eng.done.clear()
+    reqs = [Request(uid=uid, prompt=p, max_new_tokens=16)
+            for uid, p in enumerate(serve_prompts(cfg)[:8])]
+    eng.mb = counted = PrefillLaunches(eng.mb)
+    _zero_lm_launches()
+    for r in reqs:
+        eng.add_request(r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with routing_log() as routes:
+        stats = eng.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _lm_launches()
+    steps = stats["decode_steps"]
+    want = {"packed_qmatmul": per_fwd * (len(reqs) + steps),
+            "kv_attention": 0}
+    want_pre = {"packed_qmatmul": per_fwd * len(reqs), "kv_attention": 0}
+    if (launches != want or counted.launches != want_pre
+            or stats["incomplete"] or stats["requests"] != len(reqs)):
+        raise AssertionError(f"{name} serve: launches {launches} (prefills "
+                             f"{counted.launches}), expected {want} "
+                             f"({per_fwd} a prefill and a decode step), "
+                             f"stats {stats}")
+    lat = sorted(r.latency_s * 1e3 for r in reqs)
+    p50 = float(np.percentile(lat, 50))
+    p95 = float(np.percentile(lat, 95))
+    tps = stats["generated_tokens"] / wall
+    print(f"{name} W4 serve (bf16 KV, slots=8, max_len=1024; {card}): "
+          f"{len(reqs)} requests, prompts "
+          f"{min(len(r.prompt) for r in reqs)}-"
+          f"{max(len(r.prompt) for r in reqs)} tokens, "
+          f"{stats['generated_tokens']} tokens in {steps} decode steps: "
+          f"{tps:.1f} tokens/s end to end ({wall * 1e3:.1f} ms wall), "
+          f"request latency p50 {p50:.1f} ms, p95 {p95:.1f} ms; launches "
+          f"{launches} ({per_fwd} packed_qmatmul a prefill x {len(reqs)} "
+          f"+ a decode step x {steps})", flush=True)
+
+    ref, own = forced_engine(params, cfg, reqs, dev, routes=routes)
+    ref64, own64 = forced_engine(params, cfg, reqs, dev, torch.float64,
+                                 routes)
+    check = LogitCheck(f"{name} serve", 0.10, 0.15)
+    floor = LogitCheck(f"{name} float64 plain", None, None)
+    for r, want, want64 in zip(reqs, ref, ref64):
+        for t, (got, w, w64) in enumerate(zip(r.logits, want, want64)):
+            check.add(got, w, f"request {r.uid} position {t}")
+            floor.add(w64, w, f"request {r.uid} position {t}")
+    print(f"{name} serve, the same tokens fed on the plain path"
+          f"{', routed to the same experts' if routes else ''}: "
+          f"{check.summary()}", flush=True)
+    print(f"  floor, the float64-summed plain path against the float32 one: "
+          f"{floor.summary()}", flush=True)
+    if routes:
+        flips, total = routing_flips(own, routes)
+        flips64, _ = routing_flips(own64, routes)
+        print(f"  routing: {total} (token, layer) routings replayed; the "
+              f"plain path's own router would have picked another "
+              f"top-{cfg.moe.top_k} set in {flips} ({100 * flips / total:.3f}"
+              f"%), the float64-summed one in {flips64} "
+              f"({100 * flips64 / total:.3f}%)", flush=True)
+    toks = torch.as_tensor(eng.last_token[:, None], dtype=torch.int64,
+                           device=dev)
+    print(f"{name} decode step, 8 ragged slots, bf16 KV:", flush=True)
+    profile_calls(lambda: transformer.decode_step(params, cfg, eng.cache,
+                                                  toks, ragged=True),
+                  "decode step")
+    decode = {k: launches[k] - want_pre[k] for k in launches}
+    return decode, want_pre, dict(tokens_per_s=tps, p50_ms=p50, p95_ms=p95,
+                                  rms=check.rms, max=check.max)
+
+
+def family_uniform_run(dev, card, name, prefill, decode, *, b, max_len,
+                       n_steps, per_prefill, per_step, limits):
+    """A uniform batch: ``prefill()``, the cache padded to ``max_len``
+    (6 positions beyond the run's for a profile of its decode step),
+    ``n_steps`` greedy ``decode(cache, tokens)`` steps; the launches of
+    both kernels asserted (``per_prefill``, ``per_step`` dicts), prefill
+    ms, decode ms a step (p50 / p95) and tokens/s, and the logits at
+    every step held against the same steps re-run on the plain path
+    (fed the same tokens) within ``limits`` (relative RMS, max), beside
+    the float64 floor.  Returns (decode launches, prefill launches,
+    metrics)."""
+    import numpy as np
+    import torch
+
+    pre_launches = []
+
+    def run(feed=None, steps=n_steps):
+        n0 = _lm_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, pre = prefill()
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        pre_launches.append({k: n - n0[k] for k, n in _lm_launches().items()})
+        cache = _pad_cache(pre, max_len)
+        out, fed, step_s = [logits.float().cpu().numpy()], [], []
+        for i in range(steps):
+            tok = (torch.argmax(logits, -1) if feed is None
+                   else feed[i]).reshape(b, 1)
+            fed.append(tok)
+            t1 = time.perf_counter()
+            logits, cache = decode(cache, tok)
+            out.append(logits.float().cpu().numpy())
+            step_s.append(time.perf_counter() - t1)
+        return out, fed, pre_s, step_s, pre, cache
+
+    run(steps=2)                                       # warm-up
+    _zero_lm_launches()
+    got, fed, pre_s, step_s, pre, cache = run()
+    launches, pre_n = _lm_launches(), pre_launches[-1]
+    want = {k: per_prefill[k] + n_steps * per_step[k] for k in per_step}
+    if launches != want or pre_n != per_prefill:
+        raise AssertionError(f"{name}: launches {launches} (prefill "
+                             f"{pre_n}), expected {want} "
+                             f"(prefill {per_prefill}, a step {per_step})")
+    step_ms = sorted(t * 1e3 for t in step_s)
+    p50 = float(np.percentile(step_ms, 50))
+    p95 = float(np.percentile(step_ms, 95))
+    tps = b * n_steps / sum(step_s)
+    print(f"{name} ({card}): prefill {pre_s * 1e3:.1f} ms, decode step "
+          f"p50 {p50:.2f} ms, p95 {p95:.2f} ms ({tps:.1f} tokens/s over "
+          f"{n_steps} steps of batch {b}); launches {launches} (prefill "
+          f"{per_prefill}, a step {per_step})", flush=True)
+    with plain_kernels():
+        ref, _, _, _, ref_pre, _ = run(feed=fed)
+    with plain_kernels(torch.float64):
+        ref64 = run(feed=fed)[0]
+    check = LogitCheck(name, *limits)
+    floor = LogitCheck(f"{name} float64 plain", None, None)
+    for i, (g, r, r64) in enumerate(zip(got, ref, ref64)):
+        for row in range(b):
+            check.add(g[row], r[row], f"step {i} row {row}")
+            floor.add(r64[row], r[row], f"step {i} row {row}")
+    flips = ""
+    if pre["k"].dtype == torch.int32:
+        share = {k: 100 * float((pre[k] != ref_pre[k]).float().mean())
+                 for k in ("k", "v")}
+        flips = (f"; packed KV words after prefill that differ from the "
+                 f"plain path's: K {share['k']:.2f}%, V {share['v']:.2f}%")
+    print(f"{name} teacher-forced on the plain path: {check.summary()}"
+          f"{flips}", flush=True)
+    print(f"  floor, the float64-summed plain path against the float32 one: "
+          f"{floor.summary()}", flush=True)
+    # 6 more steps into the cache's spare positions
+    print(f"{name} decode step:", flush=True)
+    profile_calls(lambda: decode(cache, fed[-1]), "decode step")
+    decode_launches = {k: n - pre_n[k] for k, n in launches.items()}
+    return decode_launches, pre_n, dict(
+        decode_tokens_per_s=tps, step_p50_ms=p50, step_p95_ms=p95,
+        prefill_ms=pre_s * 1e3, rms=check.rms, max=check.max)
+
+
+# the families' uniform runs: batch, hymba's prompt, paligemma's text
+# tokens, whisper's frames and prompt, and decode steps
+FAM_B, HYMBA_LEN, PALI_TEXT, WHISPER_FRAMES, WHISPER_PROMPT = 4, 1024, 64, \
+    1500, 4
+FAM_STEPS, WHISPER_STEPS, WHISPER_MAX_LEN = 16, 32, 448
+
+
+def _build_family(dev, arch):
+    """``arch`` at full width from seed 0, every linear packed to W4."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer, whisper
+
+    cfg = get_config(arch)
+    init = whisper.init if cfg.encdec is not None else transformer.init
+    t0 = time.perf_counter()
+    params = pack_lm(init(0, cfg, device=dev), 4)
+    torch.cuda.synchronize()
+    print(f"{arch} full width ({cfg.n_layers} layers, d {cfg.d_model}, "
+          f"vocab {cfg.vocab}, {cfg.dtype}; {cfg.n_params() / 1e9:.2f} B "
+          f"parameters): init from seed 0 and W4 packing in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the "
+          f"card", flush=True)
+    return cfg, params
+
+
+def _whisper_step_linears(params):
+    """Whisper's decoder linears a decode step runs, one list a layer: the
+    cross-attention's wq and wo only (its wk and wv project the encoder
+    states, at prefill)."""
+    return [[lp["attn"][k]["w"] for k in ("wq", "wk", "wv", "wo")]
+            + [lp["xattn"][k]["w"] for k in ("wq", "wo")]
+            + [lp["mlp"][k]["w"] for k in ("wi", "wo")]
+            for lp in params["dec_layers"]]
+
+
+def families_kernel_phase(dev):
+    """The kernels at the LM families' served shapes, full width, random
+    weights from seed 0, W4 (``pack_lm``): each family's decode-layer
+    linears held against the plain version and timed at M=8
+    (``LayerLinears``), and held against it at every other M the
+    families phase gives them (the engine's prefills and warm-up,
+    hymba's 4 x 1024 prefill, paligemma's 4 x (256 + 64) and
+    ``vision_proj``'s 4 x 256, whisper's 4 x 1500 encoder states and
+    4 x 4 prompt, the uniform decode at M=4); ``kv_attention`` held
+    against its plain version and timed at Hymba's (hd 64, 5 query
+    heads a KV head, window 1024) and PaliGemma's (hd 256, G 8) served
+    caches.  It runs beside the other kernel phases, before the serving
+    and training phases, after which the profiler misses launches
+    (PERF.md §7).  Returns (rows, errs) for the kernel record."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rows = {"packed_qmatmul": {}, "kv_attention": {}}
+    errs = {"packed_qmatmul": 0.0, "kv_attention": 0.0}
+    b = FAM_B
+
+    def layer_row(short, layers):
+        """Time one decode layer's linears (``layers``: one list a
+        layer)."""
+        r, err, run, nbytes = LayerLinears(dev, gen, layers).at(
+            8, check_all=True)
+        shapes = sorted({tuple(qt.shape) for qt in layers[0]})
+        print(f"  packed_qmatmul {short} decode layer ({len(layers[0])} "
+              f"linears, (n, k) {shapes}) m=8 w4 bf16, cold, variant "
+              f"{r['variant']}: kernel {r['ms']:.4f} ms (wrapper calls "
+              f"{_median_ms(run):.4f} ms wall) | plain {r['plain_ms']:.4f} ms "
+              f"| bf16 matmul on dequantized weights {r['library_ms']:.4f} ms "
+              f"| bound {r['bound_ms']:.5f} ms (bytes {r['bytes_ms']:.5f}, "
+              f"flops {r['ops_ms']:.5f}; {nbytes} B) | max |err| {err:.3e} "
+              f"(all {len(layers)} layers)", flush=True)
+        rows["packed_qmatmul"][f"{short} decode layer"] = r
+        errs["packed_qmatmul"] = max(errs["packed_qmatmul"], err)
+
+    def check_served(short, layers, ms):
+        """Hold layer 0's linears of ``layers`` against the plain version
+        at each M (rows) that the served path runs them at."""
+        ms, variants, err = sorted(set(ms)), set(), 0.0
+        linears = LayerLinears(dev, gen, layers)
+        for m in ms:
+            _, v, e = linears.check(m)
+            variants.update(v)
+            err = max(err, e)
+        print(f"  packed_qmatmul {short}: layer 0's {len(layers[0])} "
+              f"linears within tolerance of the plain version at the served "
+              f"M {ms} (variants {', '.join(sorted(variants))}; max |err| "
+              f"{err:.3e})", flush=True)
+        errs["packed_qmatmul"] = max(errs["packed_qmatmul"], err)
+
+    def kv(arch, short, cfg, live, window=0, checks=()):
+        r, err = kv_row(dev, gen, arch, b=b, s_len=live, live=live,
+                        h=cfg.n_heads, kh=cfg.n_kv, hd=cfg.head_dim,
+                        window=window, checks=checks)
+        rows["kv_attention"][f"{short} decode"] = r
+        errs["kv_attention"] = max(errs["kv_attention"], err)
+
+    for arch, short in (("granite-moe-3b-a800m", "granite"),
+                        ("mamba2-1.3b", "mamba2"), ("hymba-1.5b", "hymba"),
+                        ("paligemma-3b", "paligemma")):
+        cfg, params = _build_family(dev, arch)
+        layers = [_layer_linears(lp) for lp in params["layers"]]
+        layer_row(short, layers)
+        engine = [16] + [len(p) for p in serve_prompts(cfg)[:8]]
+        if short == "paligemma":
+            check_served("paligemma prefill and decode", layers,
+                         [b * (cfg.vision_prefix_len + PALI_TEXT), b])
+            check_served("paligemma vision_proj",
+                         [[params["vision_proj"]["w"]]],
+                         [b * cfg.vision_prefix_len])
+            kv(arch, short, cfg,
+               cfg.vision_prefix_len + PALI_TEXT + FAM_STEPS)
+        elif short == "hymba":
+            check_served("hymba prefills and uniform decode", layers,
+                         engine + [b * HYMBA_LEN, b])
+            kv(arch, short, cfg, HYMBA_LEN + FAM_STEPS, cfg.sliding_window,
+               ((0, None),))
+        else:
+            check_served(f"{short} prefills", layers, engine)
+        del params, layers
+        torch.cuda.empty_cache()
+
+    cfg, params = _build_family(dev, "whisper-base")
+    dec_step = _whisper_step_linears(params)
+    layer_row("whisper", dec_step)
+    check_served("whisper decoder prefill and decode", dec_step,
+                 [b * WHISPER_PROMPT, b])
+    check_served("whisper cross-attention K/V", [
+        [lp["xattn"][k]["w"] for k in ("wk", "wv")]
+        for lp in params["dec_layers"]], [b * WHISPER_FRAMES])
+    check_served("whisper encoder", [_layer_linears(lp)
+                                     for lp in params["enc_layers"]],
+                 [b * WHISPER_FRAMES])
+    del params, dec_step
+    torch.cuda.empty_cache()
     return rows, errs
+
+
+def families_phase(dev, card):
+    """The LM families beyond the dense ones served at full width, bf16,
+    random weights from seed 0, every linear packed to W4 (``pack_lm``;
+    their kernels at these shapes: ``families_kernel_phase``):
+
+    - granite-moe-3b-a800m, mamba2-1.3b and hymba-1.5b by the engine
+      (``family_serve_run``; MoE prefills on the dispatch path, decodes
+      on the dense mix): 128, 96 and 288 ``packed_qmatmul`` a forward;
+    - hymba-1.5b with an INT4 KV cache, a uniform batch of 4 x 1024-token
+      prompts and 16 decode steps that cross its 1024 window: 288 a
+      forward, 32 ``kv_attention`` a step;
+    - paligemma-3b, INT4 KV, a uniform batch of 4 x (256 vision
+      embeddings + 64 text tokens), 16 decode steps: 127 at prefill
+      (``vision_proj`` the 127th), 126 and 18 ``kv_attention`` (head_dim
+      256, 8 query heads a KV head) a step;
+    - whisper-base, bf16 KV: ``encode`` of 4 x 1500 stub frames inside
+      the prefill of a 4-token prompt, the cache padded to 448, 32
+      uniform decode steps: 96 at prefill (36 in ``encode``), 48 a step.
+
+    moonshot-v1-16b-a3b (28.1 B parameters, ~56 GB in bf16) is held only
+    on the CPU.  Returns the runs' launches for the kernel record."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer, whisper
+
+    t_phase = time.perf_counter()
+    runs = {}
+    b, n_steps = FAM_B, FAM_STEPS
+
+    def served(path, result):
+        runs[path], runs[f"{path} prefill"] = result[:2]
+
+    def per_forward(cfg, params):
+        return len(_layer_linears(params["layers"][0])) * cfg.n_layers
+
+    for arch, short, name in (("granite-moe-3b-a800m", "granite",
+                               "granite-moe"),
+                              ("mamba2-1.3b", "mamba2", "mamba2")):
+        cfg, params = _build_family(dev, arch)
+        served(f"{short} serve", family_serve_run(
+            dev, card, name, cfg, params, per_forward(cfg, params)))
+        del params
+        torch.cuda.empty_cache()
+
+    cfg, params = _build_family(dev, "hymba-1.5b")
+    per = per_forward(cfg, params)
+    served("hymba serve", family_serve_run(dev, card, "hymba", cfg, params,
+                                           per))
+    cfg4 = dataclasses.replace(cfg, kv_cache_bits=4)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (b, HYMBA_LEN)), dtype=torch.int64, device=dev)
+    served("hymba int4-kv", family_uniform_run(
+        dev, card, f"hymba W4 + INT4 KV, uniform batch {b} x {HYMBA_LEN}",
+        lambda: transformer.prefill(params, cfg4, toks),
+        lambda c, t: transformer.decode_step(params, cfg4, c, t),
+        b=b, max_len=HYMBA_LEN + n_steps + 6, n_steps=n_steps,
+        per_prefill={"packed_qmatmul": per, "kv_attention": 0},
+        per_step={"packed_qmatmul": per, "kv_attention": cfg.n_layers},
+        limits=(0.25, 0.30)))
+    del params, toks
+    torch.cuda.empty_cache()
+
+    cfg, params = _build_family(dev, "paligemma-3b")
+    per = per_forward(cfg, params)
+    cfg4 = dataclasses.replace(cfg, kv_cache_bits=4)
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (b, PALI_TEXT)),
+                           dtype=torch.int64, device=dev)
+    vis = torch.as_tensor(rng.standard_normal(
+        (b, cfg.vision_prefix_len, cfg.d_model)), dtype=torch.bfloat16,
+        device=dev)
+    s_all = cfg.vision_prefix_len + PALI_TEXT
+    served("paligemma int4-kv", family_uniform_run(
+        dev, card, f"paligemma W4 + INT4 KV, uniform batch {b} x "
+        f"({cfg.vision_prefix_len} vision + {PALI_TEXT} text)",
+        lambda: transformer.prefill(params, cfg4, toks, vis),
+        lambda c, t: transformer.decode_step(params, cfg4, c, t),
+        b=b, max_len=s_all + n_steps + 6, n_steps=n_steps,
+        per_prefill={"packed_qmatmul": per + 1, "kv_attention": 0},
+        per_step={"packed_qmatmul": per, "kv_attention": cfg.n_layers},
+        limits=(0.25, 0.30)))
+    del params, toks, vis
+    torch.cuda.empty_cache()
+
+    cfg, params = _build_family(dev, "whisper-base")
+    per = len(_whisper_step_linears(params)[0])
+    per_step = per * cfg.n_layers
+    per_enc = len(_layer_linears(params["enc_layers"][0])) \
+        * cfg.encdec.n_layers
+    per_pre = per_enc + (per + 2) * cfg.n_layers
+    rng = np.random.default_rng(0)
+    frames = torch.as_tensor(rng.standard_normal(
+        (b, WHISPER_FRAMES, cfg.d_model)), dtype=torch.bfloat16, device=dev)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (b, WHISPER_PROMPT)),
+                           dtype=torch.int64, device=dev)
+    served("whisper decode", family_uniform_run(
+        dev, card, f"whisper-base W4, bf16 KV, encode {b} x "
+        f"{WHISPER_FRAMES} frames + a {WHISPER_PROMPT}-token prompt",
+        lambda: whisper.prefill(params, cfg, toks, frames),
+        lambda c, t: whisper.decode_step(params, cfg, c, t),
+        b=b, max_len=WHISPER_MAX_LEN, n_steps=WHISPER_STEPS,
+        per_prefill={"packed_qmatmul": per_pre, "kv_attention": 0},
+        per_step={"packed_qmatmul": per_step, "kv_attention": 0},
+        limits=(0.10, 0.15)))
+    print(f"  whisper prefill: {per_pre} packed_qmatmul ({per_enc} in "
+          f"encode)", flush=True)
+    del params, frames, toks
+    torch.cuda.empty_cache()
+    print(f"families phase: {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+    return runs
 
 
 def plain_forward(model, images):
@@ -2709,6 +3405,17 @@ def main() -> int:
         # the trained 2-layer checkpoint served: its prefills and decode
         # steps counted together, ms per decode step
         "olmo train → serve": {"packed_qmatmul": ["decode layer"] * 2},
+        # the families phase, per decode step (its prefills' launches are
+        # counted under "<path> prefill", with no geometry of their own)
+        "granite serve": {"packed_qmatmul": ["granite decode layer"] * 32},
+        "mamba2 serve": {"packed_qmatmul": ["mamba2 decode layer"] * 48},
+        "hymba serve": {"packed_qmatmul": ["hymba decode layer"] * 32},
+        "hymba int4-kv": {"packed_qmatmul": ["hymba decode layer"] * 32,
+                          "kv_attention": ["hymba decode"] * 32},
+        "paligemma int4-kv": {
+            "packed_qmatmul": ["paligemma decode layer"] * 18,
+            "kv_attention": ["paligemma decode"] * 18},
+        "whisper decode": {"packed_qmatmul": ["whisper decode layer"] * 6},
     }
 
     def main_names(kernel):
@@ -2748,6 +3455,10 @@ def main() -> int:
           f"0 and W4 packing of the {7 * cfg.n_layers} linears in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     lm_rows, lm_errs = lm_kernel_phase(dev, cfg, params)
+    fam_rows, fam_errs = families_kernel_phase(dev)
+    for name, geos in fam_rows.items():
+        lm_rows[name].update(geos)
+        lm_errs[name] = max(lm_errs[name], fam_errs[name])
     rows.update(lm_rows)
     errs.update(lm_errs)
     for path, phase in (("olmo serve", lm_serve_phase),
@@ -2759,6 +3470,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     runs["olmo train → serve"] = train_phase(dev, smi)
+    runs.update(families_phase(dev, smi))
     # last: it profiles whole launcher runs (every host thread), after
     # the phases whose profiles count kernel events
     runs.update(obs_phase(dev, smi))
@@ -2779,11 +3491,14 @@ def main() -> int:
           "the NCE step path's unfused rollouts, whose lif_step row times "
           "the packed entry they launch; the two olmo-1b runs, their "
           "prefills counted apart; the trained 2-layer olmo served, its "
-          "prefills and decode steps together); "
+          "prefills and decode steps together; the families phase's six "
+          "runs, their prefills counted apart; packed_qmatmul also one "
+          "decode layer of each family at M=8, kv_attention also Hymba's "
+          "and PaliGemma's INT4 caches); "
           "paths gives each path's launches and its kernel ms per B=8 "
-          "forward (NCE: per step of each geometry; olmo: per decode step, "
-          "per INT4-KV prefill, and over the serve phase's 16 prefills)",
-          flush=True)
+          "forward (NCE: per step of each geometry; olmo and the families: "
+          "per decode step, per INT4-KV prefill, and over the serve "
+          "phase's 16 prefills)", flush=True)
 
     def record(name, source, replaces):
         kr = {g: r for g, r in rows[name].items() if g in main_names(name)}

@@ -10,12 +10,15 @@ object with numpy ``data``/``scale``/``zero`` and its ``shape``, ``bits``
 and ``group_size``; :func:`quantized_from_numpy` turns one into the port's
 :class:`~repro_torch.quant.formats.QuantizedTensor` (an NCE engine's
 weights, or a packed LM linear).  :func:`lm_params_from_numpy` turns an
-LM param tree, whose ``layers`` are stacked along a leading layer axis
-(as ``jax.lax.scan`` wants them), into the port's list of per-layer
-dicts; a stacked packed linear (data ``(L, n, kw)``, scale ``(L, n, g)``,
-per-layer logical ``shape``) splits into one tensor per layer.
+LM param tree of any family, whose layer stacks (``layers``, and
+whisper's ``enc_layers``/``dec_layers``) are stacked along a leading
+layer axis (as ``jax.lax.scan`` wants them), into the port's lists of
+per-layer dicts; every leaf is sliced along that axis, so MoE's stacked
+experts ``(L, E, d, f)`` become ``(E, d, f)`` per layer, and a stacked
+packed linear (data ``(L, n, kw)``, scale ``(L, n, g)``, per-layer
+logical ``shape``) splits into one tensor per layer.
 :func:`lm_params_to_numpy` is its inverse for dense trees (params,
-gradients, optimizer moments): per-layer list back to stacked numpy.
+gradients, optimizer moments): per-layer lists back to stacked numpy.
 """
 
 from __future__ import annotations
@@ -76,16 +79,22 @@ def _layer_slice(tree, i: int):
     return np.asarray(tree)[i]
 
 
+#: the keys of an LM tree that hold a stack of layers
+LAYER_STACKS = ("layers", "enc_layers", "dec_layers")
+
+
 def lm_params_from_numpy(tree, device="cuda"):
     """A JAX LM param tree (numpy leaves, layers stacked) -> the port's
-    params: the same dict with ``layers`` a list of per-layer dicts."""
+    params: the same dict with each layer stack a list of per-layer
+    dicts."""
     device = resolve_device(device)
-    out = {k: params_from_numpy(v, device) for k, v in tree.items()
-           if k != "layers"}
-    layers = tree["layers"]
-    n_layers = _first_leaf(layers).shape[0]
-    out["layers"] = [params_from_numpy(_layer_slice(layers, i), device)
-                     for i in range(n_layers)]
+    out = {}
+    for k, v in tree.items():
+        if k in LAYER_STACKS:
+            out[k] = [params_from_numpy(_layer_slice(v, i), device)
+                      for i in range(_first_leaf(v).shape[0])]
+        else:
+            out[k] = params_from_numpy(v, device)
     return out
 
 
@@ -114,15 +123,15 @@ def _stack_layers(layers):
 
 
 def lm_params_to_numpy(params):
-    """The port's LM tree (params, gradients or AdamW moments; ``layers``
-    a list of per-layer dicts of dense tensors) -> JAX's layout: numpy
-    leaves, ``layers`` stacked along a leading layer axis.  bfloat16
-    leaves come out as float32 (exact; numpy has no bfloat16)."""
+    """The port's LM tree (params, gradients or AdamW moments; each layer
+    stack a list of per-layer dicts of dense tensors) -> JAX's layout:
+    numpy leaves, each layer stack stacked along a leading layer axis.
+    bfloat16 leaves come out as float32 (exact; numpy has no
+    bfloat16)."""
     def conv(tree):
         if isinstance(tree, dict):
             return {k: conv(v) for k, v in tree.items()}
         return _to_numpy(tree)
 
-    out = {k: conv(v) for k, v in params.items() if k != "layers"}
-    out["layers"] = _stack_layers(params["layers"])
-    return out
+    return {k: _stack_layers(v) if k in LAYER_STACKS else conv(v)
+            for k, v in params.items()}

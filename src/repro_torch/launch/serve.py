@@ -7,7 +7,9 @@ Port of ``repro.launch.serve``, with the same flags plus ``--device``:
         [--smoke | --full] [--requests 8] [--slots 4] [--max-new 16]
         [--quant-bits 16] [--device cuda|cpu]
 
-``--quant-bits 2|4|8`` sets the model's precision to that width with one
+``--arch`` takes every decoder family (dense, MoE, Mamba-2, the Hymba
+hybrid, PaliGemma's decoder without an image); the engine refuses the
+audio family, as JAX's does.  ``--quant-bits 2|4|8`` sets the model's precision to that width with one
 scale per output channel, which (as in the JAX launcher) runs every
 linear fake-quantized.  Params are random from seed 0.  ``--device``
 defaults to ``cuda``; without a card the launcher raises unless

@@ -1,10 +1,10 @@
 """Model registry: uniform init / loss / prefill / decode per family.
 
-Port of ``repro.models.api`` for the decoder-only families the port has
-(dense, with QAT fake-quant, the spiking FFN and remat).  ``loss_fn`` is
-differentiable with ``torch.autograd``.  The audio family and the
-families ``transformer`` leaves out (MoE, SSM, hybrid, VLM) raise
-``NotImplementedError`` here.
+Port of ``repro.models.api``: every family of ``configs/``.  The audio
+family (whisper) is an encoder-decoder with no ``init_cache`` (its
+prefill takes ``frames`` and emits the cache); every other family is
+the decoder-only :mod:`repro_torch.models.transformer`.  ``loss_fn`` is
+differentiable with ``torch.autograd``.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import transformer, whisper
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,7 +26,17 @@ class ModelBundle:
 
 
 def get_model(cfg: ArchConfig) -> ModelBundle:
-    transformer.check_supported(cfg)
+    if cfg.family == "audio":
+        return ModelBundle(
+            init=lambda seed, device="cuda": whisper.init(seed, cfg,
+                                                          device=device),
+            loss_fn=lambda params, batch: whisper.loss_fn(params, cfg,
+                                                          batch),
+            prefill=lambda params, batch: whisper.prefill(
+                params, cfg, batch["tokens"], batch["frames"]),
+            decode_step=lambda params, cache, tokens: whisper.decode_step(
+                params, cfg, cache, tokens),
+        )
     return ModelBundle(
         init=lambda seed, device="cuda": transformer.init(seed, cfg,
                                                           device=device),

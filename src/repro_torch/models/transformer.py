@@ -1,14 +1,23 @@
-"""Decoder-only LM backbone, dense family.
+"""Decoder-only LM backbone: every decoder family of the JAX package.
 
-Port of ``repro.models.transformer`` for the dense decoder families
-(olmo, stablelm, internlm2, gemma2's local/global alternation with its
-soft caps and post-block norms).  ``params["layers"]`` is a list of
+Port of ``repro.models.transformer``: the dense families (olmo, stablelm,
+internlm2, gemma2's local/global alternation with its soft caps and
+post-block norms), MoE (``cfg.moe``: :mod:`repro_torch.models.moe` in
+place of the MLP), SSM (``family == "ssm"``: a Mamba-2 mixer,
+:mod:`repro_torch.models.mamba2`, in place of attention), the hybrid
+(``hybrid_parallel_ssm``: attention and a Mamba-2 mixer side by side,
+their outputs mixed per channel by ``mix_scale``) and the VLM prefix
+(``vision_prefix_len``: ``vision_proj`` of the image embeddings
+prepended to the text, attended bidirectionally).  The audio family is
+:mod:`repro_torch.models.whisper`.  ``params["layers"]`` is a list of
 per-layer dicts and a Python loop over layers replaces ``jax.lax.scan``,
-so each layer's attention window is a Python int.  The KV cache keeps the
-JAX package's stacked layout, ``(n_layers, B, S, K, hd)`` (or packed
-words and scales when ``kv_cache_bits != 16``), and decode steps write
-into it in place (the JAX version returns a new cache; in place saves a
-copy of the whole cache per step).
+so each layer's attention window is a Python int.  The cache keeps the
+JAX package's stacked layout: K/V ``(n_layers, B, S, K, hd)`` (or packed
+words and scales when ``kv_cache_bits != 16``), and for SSM layers the
+conv inputs ``(n_layers, B, W - 1, C)`` in the model dtype and the state
+``(n_layers, B, nh, hp, N)`` in float32.  Decode steps write into it in
+place (the JAX version returns a new cache; in place saves a copy of the
+whole cache per step).
 
 The spiking FFN (``cfg.spiking``) replaces the MLP where it is set, and
 ``cfg.remat`` recomputes activations in the backward pass of
@@ -18,16 +27,14 @@ through ``torch.utils.checkpoint``'s selective checkpointing) and
 recomputes the rest, in place of ``jax.checkpoint`` and its
 ``dots_with_no_batch_dims_saveable`` policy.
 
-Left out, each raising ``NotImplementedError`` where it would be needed:
-MoE, SSM and hybrid blocks and the vision prefix.
-
 Forward modes:
   forward_hidden  full sequence (train / prefill), chunked flash-style
-                  attention for long sequences
-  loss_fn         forward + sequence-chunked cross-entropy; each chunk's
-                  (B, chunk, vocab) logits are recomputed in the backward
-                  pass instead of being saved
-  prefill         forward + KV-cache emission, last-token logits
+                  attention for long sequences; returns the summed MoE
+                  load-balance loss beside the hidden states
+  loss_fn         forward + sequence-chunked cross-entropy over the text
+                  positions; each chunk's (B, chunk, vocab) logits are
+                  recomputed in the backward pass instead of being saved
+  prefill         forward + cache emission, last-token logits
   decode_step     one token per slot against the cache, ragged (per-slot
                   lengths, the serving engine) or uniform
 """
@@ -49,6 +56,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.kv_attention import ops as kv_ops
 from repro_torch.kernels.kv_attention import ref as kv_ref
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
+from repro_torch.models import moe as MOE
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -56,20 +65,12 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` naming the first feature of ``cfg``
-    that the port does not have yet."""
-    missing = [
-        (cfg.family == "audio", "the audio (whisper) family"),
-        (cfg.moe is not None, "MoE blocks"),
-        (cfg.family == "ssm", "SSM (mamba2) blocks"),
-        (cfg.hybrid_parallel_ssm, "hybrid attention + SSM layers"),
-        (bool(cfg.vision_prefix_len), "the vision prefix (VLM family)"),
-    ]
-    for hit, what in missing:
-        if hit:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} is not ported to repro_torch yet "
-                f"(dense decoder families only)")
+    """Raise ``NotImplementedError`` for a config this module does not
+    build: the audio family, which is :mod:`repro_torch.models.whisper`."""
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            f"{cfg.name}: the audio (whisper) family is an encoder-decoder; "
+            f"build it with repro_torch.models.whisper (api.get_model does)")
 
 
 def window_schedule(cfg: ArchConfig) -> np.ndarray:
@@ -97,7 +98,9 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, device=None):
     p = {
         "ln1": L.norm_init(cfg.norm, d, dt, device),
         "ln2": L.norm_init(cfg.norm, d, dt, device),
-        "attn": {
+    }
+    if cfg.family != "ssm":
+        p["attn"] = {
             "wq": L.linear_init(gen, d, cfg.n_heads * hd, dt, cfg.qkv_bias,
                                 device),
             "wk": L.linear_init(gen, d, cfg.n_kv * hd, dt, cfg.qkv_bias,
@@ -105,13 +108,18 @@ def init_layer(gen: torch.Generator, cfg: ArchConfig, device=None):
             "wv": L.linear_init(gen, d, cfg.n_kv * hd, dt, cfg.qkv_bias,
                                 device),
             "wo": L.linear_init(gen, cfg.n_heads * hd, d, dt, device=device),
-        },
-    }
-    if cfg.d_ff > 0:
+        }
+    if cfg.moe is not None:
+        p["mlp"] = MOE.moe_init(gen, d, cfg.moe, cfg.ffn, dt, device)
+    elif cfg.d_ff > 0:
         p["mlp"] = L.ffn_init(gen, d, cfg.d_ff, cfg.ffn, dt, device)
     if cfg.post_block_norms:
         p["post_ln1"] = L.norm_init(cfg.norm, d, dt, device)
         p["post_ln2"] = L.norm_init(cfg.norm, d, dt, device)
+    if cfg.family == "ssm" or cfg.hybrid_parallel_ssm:
+        p["ssm"] = M2.mamba2_init(gen, d, cfg.ssm, dt, device)
+        if cfg.hybrid_parallel_ssm:       # learnable attn/ssm mix
+            p["mix_scale"] = torch.ones((2, d), dtype=dt, device=device)
     return p
 
 
@@ -133,6 +141,9 @@ def init(seed: int, cfg: ArchConfig, device="cuda"):
     if not cfg.tie_embeddings:
         params["lm_head"] = L.linear_init(gen, cfg.d_model, cfg.vocab, dt,
                                           device=dev)
+    if cfg.vision_prefix_len:
+        params["vision_proj"] = L.linear_init(gen, cfg.d_model, cfg.d_model,
+                                              dt, device=dev)
     return params
 
 
@@ -146,9 +157,12 @@ def _attn_scale(cfg: ArchConfig) -> float:
         cfg.head_dim ** -0.5
 
 
-def _attn_block(lp, cfg: ArchConfig, x, *, window: int, q_offset=0, cache_kv=None, cache_len=None, ragged=False,
+def _attn_block(lp, cfg: ArchConfig, x, *, window: int, prefix_len: int = 0,
+                q_offset=0, cache_kv=None, cache_len=None, ragged=False,
                 kv_len: Optional[int] = None):
     """Self-attention (full sequence or decode).  Returns (out, (k, v)).
+    ``prefix_len`` leading positions are attended bidirectionally (the
+    VLM prefix) in the full-sequence path.
 
     In decode, ``cache_kv`` holds this layer's cache tensors, which are
     written in place; ``kv_len`` (>= every slot's length) bounds the part
@@ -169,6 +183,7 @@ def _attn_block(lp, cfg: ArchConfig, x, *, window: int, q_offset=0, cache_kv=Non
 
     if cache_kv is None:
         o = L.attention(q, k, v, scale=scale, causal=True, window=window,
+                        prefix_len=prefix_len,
                         logit_cap=cfg.attn_logit_softcap)
     elif cfg.kv_cache_bits != 16:
         if ragged:
@@ -224,43 +239,90 @@ def _attn_block(lp, cfg: ArchConfig, x, *, window: int, q_offset=0, cache_kv=Non
     return o, (k, v)
 
 
-def _mlp_block(lp, cfg: ArchConfig, x):
+def _mlp_block(lp, cfg: ArchConfig, x, *, decode=False):
+    """The MLP half's mixer: (y, aux) with the MoE load-balance loss as
+    ``aux`` (0 for the other FFNs).  MoE takes the dense-mix path at
+    decode and the dispatch path otherwise."""
     pc, mode = cfg.precision, cfg.quant_mode
+    if cfg.moe is not None:
+        return MOE.moe_apply(lp, x, cfg.moe, ffn_kind=cfg.ffn, act=cfg.act,
+                             pc=pc, mode=mode, decode=decode)
     if cfg.spiking is not None:
         return L.spiking_ffn_apply(
             lp, x, cfg.act, timesteps=cfg.spiking.timesteps,
             leak_shift=cfg.spiking.leak_shift,
-            threshold=cfg.spiking.threshold, pc=pc, mode=mode)
-    return L.ffn_apply(lp, x, cfg.ffn, cfg.act, pc, mode)
+            threshold=cfg.spiking.threshold, pc=pc, mode=mode), 0.0
+    return L.ffn_apply(lp, x, cfg.ffn, cfg.act, pc, mode), 0.0
 
 
-def _residual_tail(lp, cfg: ArchConfig, x, a):
-    """x + attn (post-norm'd), then the MLP half of the block."""
+def _mix(lp, parts, dtype):
+    """One mixer's output, or the hybrid's per-channel mix of attention
+    and SSM: ``(attn * mix[0] + ssm * mix[1]) * 0.5``."""
+    if len(parts) == 1:
+        return parts[0]
+    mix = lp["mix_scale"].to(dtype)
+    return (parts[0] * mix[0][None, None] + parts[1] * mix[1][None, None]) \
+        * 0.5
+
+
+def _residual_tail(lp, cfg: ArchConfig, x, a, *, decode=False):
+    """x + the mixers' output (post-norm'd), then the MLP half of the
+    block.  Returns (x, aux)."""
     if cfg.post_block_norms:
         a = L.apply_norm(cfg.norm, lp["post_ln1"], a)
     x = x + a
+    aux = 0.0
     if "mlp" in lp:
         h2 = L.apply_norm(cfg.norm, lp["ln2"], x)
-        m = _mlp_block(lp["mlp"], cfg, h2)
+        m, aux = _mlp_block(lp["mlp"], cfg, h2, decode=decode)
         if cfg.post_block_norms:
             m = L.apply_norm(cfg.norm, lp["post_ln2"], m)
         x = x + m
-    return x
+    return x, aux
 
 
-def _embed_tokens(params, cfg: ArchConfig, tokens):
+def _embed_tokens(params, cfg: ArchConfig, tokens, vision_embeds=None):
+    """Token embeddings (scaled by sqrt(d) for the gemma families), with
+    ``vision_proj`` of the image embeddings prepended (VLM)."""
     x = params["embed"][tokens].to(_dtype(cfg))
     if cfg.name.startswith(("gemma", "paligemma")):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
+    if cfg.vision_prefix_len and vision_embeds is not None:
+        ve = L.linear(params["vision_proj"], vision_embeds.to(x.dtype))
+        x = torch.cat([ve, x], dim=1)
     return x
 
 
-def _block_full(lp, cfg: ArchConfig, x, window: int):
-    """One full-sequence layer (train / prefill path)."""
+def _block_full(lp, cfg: ArchConfig, x, window: int, emit=None):
+    """One full-sequence layer (train / prefill path).  Returns (x, aux);
+    with ``emit`` (a dict), also puts the layer's cache entries there:
+    ``k``/``v`` (quantized when ``kv_cache_bits != 16``) and the SSM's
+    ``conv``/``ssm``."""
+    pc, mode = cfg.precision, cfg.quant_mode
     h = L.apply_norm(cfg.norm, lp["ln1"], x)
-    a, _ = _attn_block(lp["attn"], cfg, h, window=window)
-    return _residual_tail(lp, cfg, x, a)
+    parts = []
+    if cfg.family != "ssm":
+        a, (k, v) = _attn_block(lp["attn"], cfg, h, window=window,
+                                prefix_len=cfg.vision_prefix_len)
+        parts.append(a)
+        if emit is not None and cfg.kv_cache_bits != 16:
+            emit["k"], emit["k_scale"] = kv_ref.quantize_kv(
+                k, cfg.kv_cache_bits)
+            emit["v"], emit["v_scale"] = kv_ref.quantize_kv(
+                v, cfg.kv_cache_bits)
+        elif emit is not None:
+            emit["k"], emit["v"] = k, v
+    if "ssm" in lp:
+        if emit is None:
+            s = M2.mamba2_apply(lp["ssm"], h, cfg.ssm, cfg.d_model, pc=pc,
+                                mode=mode)
+        else:
+            s, st = M2.mamba2_apply(lp["ssm"], h, cfg.ssm, cfg.d_model,
+                                    pc=pc, mode=mode, return_state=True)
+            emit["conv"], emit["ssm"] = st["conv"], st["ssm"]
+        parts.append(s)
+    return _residual_tail(lp, cfg, x, _mix(lp, parts, x.dtype))
 
 
 #: what ``remat="dots"`` keeps for the backward pass: the matmul outputs
@@ -269,23 +331,23 @@ _DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
 
 
 def forward_hidden(params, cfg: ArchConfig, tokens, vision_embeds=None):
-    """tokens: (B, S) -> (hidden (B, S, d), aux_loss 0)."""
+    """tokens: (B, S_text) -> (hidden (B, S, d), summed aux loss), S the
+    text and any vision prefix."""
     check_supported(cfg)
-    if vision_embeds is not None:
-        raise NotImplementedError("vision_embeds: the VLM family is not "
-                                  "ported to repro_torch yet")
-    x = _embed_tokens(params, cfg, tokens)
+    x = _embed_tokens(params, cfg, tokens, vision_embeds)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kw = {}
     if cfg.remat == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _DOTS)
     for lp, window in zip(params["layers"], window_schedule(cfg)):
         if cfg.remat == "none":
-            x = _block_full(lp, cfg, x, int(window))
+            x, aux_l = _block_full(lp, cfg, x, int(window))
         else:
-            x = checkpoint(_block_full, lp, cfg, x, int(window),
-                           use_reentrant=False, **kw)
-    return L.apply_norm(cfg.norm, params["final_norm"], x), 0.0
+            x, aux_l = checkpoint(_block_full, lp, cfg, x, int(window),
+                                  use_reentrant=False, **kw)
+        aux = aux + aux_l
+    return L.apply_norm(cfg.norm, params["final_norm"], x), aux
 
 
 def _logits_chunk(params, cfg: ArchConfig, h):
@@ -308,14 +370,18 @@ def _chunk_loss(params, cfg: ArchConfig, hb, lb):
 
 
 def loss_fn(params, cfg: ArchConfig, batch, *, ce_chunk: int = 512):
-    """Sequence-chunked cross-entropy.  batch: tokens (B, S), labels
-    (B, S) with -1 = masked.  ``S`` splits into ``max(1, S // ce_chunk)``
-    chunks, one fewer until the count divides ``S`` (JAX's rule); each
-    chunk's logits are recomputed in the backward pass
-    (``torch.utils.checkpoint`` in place of ``jax.checkpoint``)."""
+    """Sequence-chunked cross-entropy plus the MoE aux loss.  batch:
+    tokens (B, S), labels (B, S) with -1 = masked; VLM batches add
+    vision_embeds, whose positions carry no loss.  ``S`` splits into
+    ``max(1, S // ce_chunk)`` chunks, one fewer until the count divides
+    ``S`` (JAX's rule); each chunk's logits are recomputed in the
+    backward pass (``torch.utils.checkpoint`` in place of
+    ``jax.checkpoint``)."""
     tokens, labels = batch["tokens"], batch["labels"]
     h, aux = forward_hidden(params, cfg, tokens,
                             batch.get("vision_embeds"))
+    if cfg.vision_prefix_len:
+        h = h[:, cfg.vision_prefix_len:]
     s_len = h.shape[1]
     nc = max(1, s_len // ce_chunk)
     while s_len % nc:             # nc must divide S
@@ -335,6 +401,9 @@ def loss_fn(params, cfg: ArchConfig, batch, *, ce_chunk: int = 512):
 # serving: prefill + decode
 # ---------------------------------------------------------------------------
 
+#: the cache entries a layer carries, in the stacked cache's key order
+_CACHE_KEYS = ("k", "v", "k_scale", "v_scale", "conv", "ssm")
+
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
     check_supported(cfg)
@@ -343,7 +412,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
     # per-slot lengths: the serving engine keeps ragged sequences in one
     # shared pool
     cache = {"len": torch.zeros((batch,), dtype=torch.int32, device=dev)}
-    if cfg.kv_cache_bits != 16:
+    if cfg.family != "ssm" and cfg.kv_cache_bits != 16:
         # sub-word packed cache: int32 words along head_dim + one f32
         # absmax scale per (position, head), kernels/kv_attention
         w = cfg.head_dim * cfg.kv_cache_bits // 32
@@ -353,42 +422,37 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
         cache["k_scale"] = torch.zeros(shape + (1,), dtype=torch.float32,
                                        device=dev)
         cache["v_scale"] = torch.zeros_like(cache["k_scale"])
-    else:
+    elif cfg.family != "ssm":
         shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.head_dim)
         cache["k"] = torch.zeros(shape, dtype=dt, device=dev)
         cache["v"] = torch.zeros_like(cache["k"])
+    if cfg.family == "ssm" or cfg.hybrid_parallel_ssm:
+        per = M2.mamba2_init_cache(batch, cfg.d_model, cfg.ssm, dt, dev)
+        for key, t in per.items():
+            cache[key] = t[None].repeat((cfg.n_layers,) + (1,) * t.ndim)
     return cache
 
 
 def prefill(params, cfg: ArchConfig, tokens, vision_embeds=None):
-    """tokens (B, S) -> (last-token logits (B, vocab) f32, cache with
-    ``len`` = S and per-layer K/V of length S)."""
+    """tokens (B, S_text) -> (last-token logits (B, vocab) f32, cache with
+    ``len`` = S and each layer's K/V of length S and SSM state), S the
+    text and any vision prefix."""
     check_supported(cfg)
-    if vision_embeds is not None:
-        raise NotImplementedError("vision_embeds: the VLM family is not "
-                                  "ported to repro_torch yet")
-    x = _embed_tokens(params, cfg, tokens)
-    bsz, s_len = tokens.shape
-    outs = {"k": [], "v": [], "k_scale": [], "v_scale": []}
+    x = _embed_tokens(params, cfg, tokens, vision_embeds)
+    bsz, s_len = x.shape[:2]
+    outs = {}
     for lp, window in zip(params["layers"], window_schedule(cfg)):
-        h = L.apply_norm(cfg.norm, lp["ln1"], x)
-        a, (k, v) = _attn_block(lp["attn"], cfg, h, window=int(window))
-        if cfg.kv_cache_bits != 16:
-            for name, t in (("k", k), ("v", v)):
-                words, scale = kv_ref.quantize_kv(t, cfg.kv_cache_bits)
-                outs[name].append(words)
-                outs[f"{name}_scale"].append(scale)
-        else:
-            outs["k"].append(k)
-            outs["v"].append(v)
-        x = _residual_tail(lp, cfg, x, a)
+        emit = {}
+        x, _ = _block_full(lp, cfg, x, int(window), emit=emit)
+        for key, t in emit.items():
+            outs.setdefault(key, []).append(t)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
     logits = _logits_chunk(params, cfg, x[:, -1:])[:, 0]
     cache = {"len": torch.full((bsz,), s_len, dtype=torch.int32,
                                device=x.device)}
-    for key, vals in outs.items():
-        if vals:
-            cache[key] = torch.stack(vals)
+    for key in _CACHE_KEYS:
+        if key in outs:
+            cache[key] = torch.stack(outs[key])
     return logits, cache
 
 
@@ -398,33 +462,51 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, *, ragged=False):
 
     ragged=True takes per-slot cache lengths (continuous batching); the
     uniform path writes one position for the whole batch.  A live slot
-    never runs past the cache: the uniform path raises when the cache is
-    full (JAX would clamp the write onto the last position), and the
-    ragged path leaves that to the engine, which retires a slot at
-    ``max_len``."""
+    never runs past the cache: the uniform path raises when the K/V
+    cache is full (JAX would clamp the write onto the last position),
+    and the ragged path leaves that to the engine, which retires a slot
+    at ``max_len``.  SSM layers step their conv/state cache, which has
+    no length."""
     check_supported(cfg)
+    pc, mode = cfg.precision, cfg.quant_mode
     x = _embed_tokens(params, cfg, tokens)   # a gather: the same bits as
     #                                          JAX's one-hot contraction
-    s_len = cache["k"].shape[2]
     new_len = cache["len"] + 1
-    longest = int(new_len.max())
-    if not ragged and longest > s_len:
-        raise ValueError(f"decode_step: the cache holds {s_len} positions "
-                         f"and is full; pad the prefill cache to max_len")
+    attn = cfg.family != "ssm"
+    longest = None
+    if attn:
+        s_len = cache["k"].shape[2]
+        longest = int(new_len.max())
+        if not ragged and longest > s_len:
+            raise ValueError(f"decode_step: the cache holds {s_len} "
+                             f"positions and is full; pad the prefill "
+                             f"cache to max_len")
     packed = cfg.kv_cache_bits != 16
     for i, (lp, window) in enumerate(zip(params["layers"],
                                          window_schedule(cfg))):
         h = L.apply_norm(cfg.norm, lp["ln1"], x)
-        if packed:
-            ckv = (cache["k"][i], cache["k_scale"][i], cache["v"][i],
-                   cache["v_scale"][i])
-        else:
-            ckv = (cache["k"][i], cache["v"][i])
-        a, _ = _attn_block(lp["attn"], cfg, h, window=int(window),
-                           q_offset=new_len - 1,
-                           cache_kv=ckv, cache_len=new_len, ragged=ragged,
-                           kv_len=longest)
-        x = _residual_tail(lp, cfg, x, a)
+        parts = []
+        if attn:
+            if packed:
+                ckv = (cache["k"][i], cache["k_scale"][i], cache["v"][i],
+                       cache["v_scale"][i])
+            else:
+                ckv = (cache["k"][i], cache["v"][i])
+            a, _ = _attn_block(lp["attn"], cfg, h, window=int(window),
+                               q_offset=new_len - 1,
+                               cache_kv=ckv, cache_len=new_len,
+                               ragged=ragged, kv_len=longest)
+            parts.append(a)
+        if "ssm" in lp:
+            s, st = M2.mamba2_decode_step(
+                lp["ssm"], h, {"conv": cache["conv"][i],
+                               "ssm": cache["ssm"][i]},
+                cfg.ssm, cfg.d_model, pc=pc, mode=mode)
+            cache["conv"][i] = st["conv"]
+            cache["ssm"][i] = st["ssm"]
+            parts.append(s)
+        x, _ = _residual_tail(lp, cfg, x, _mix(lp, parts, x.dtype),
+                              decode=True)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
     logits = _logits_chunk(params, cfg, x)[:, 0]
     cache["len"] = new_len

@@ -2,10 +2,11 @@
 batching.
 
 Port of ``repro.serve.engine``.  A fixed pool of B slots shares one
-stacked KV cache.  New requests are prefilled one at a time (their
+stacked cache.  New requests are prefilled one at a time (their
 per-layer K/V written into the free slot's batch row, zero-padded to
-``max_len``); the decode loop advances ALL live slots each step (one
-ragged ``decode_step`` over the batch), retiring slots on EOS/length and
+``max_len``, and an SSM layer's conv inputs and state beside them); the
+decode loop advances ALL live slots each step (one ragged
+``decode_step`` over the batch), retiring slots on EOS/length and
 refilling them from the queue.
 
 Sampling is greedy (``temperature=0``, the first maximal logit, as
@@ -81,13 +82,18 @@ class ServeEngine:
         self.queue.append(req)
 
     def _write_slot_cache(self, slot: int, pcache, plen: int):
-        """Insert a single-request prefill cache into the pool at ``slot``
-        (zero past the prompt, as JAX pads it)."""
+        """Insert a single-request prefill cache into the pool at ``slot``:
+        its K/V zero past the prompt, as JAX pads it, and an SSM layer's
+        conv inputs and state as they are."""
         for k in ("k", "v"):
-            src = pcache[k]                        # (L, 1, S, K, hd)
-            dst = self.cache[k]
-            dst[:, slot].zero_()
-            dst[:, slot, :src.shape[2]] = src[:, 0]
+            if k in self.cache:
+                src = pcache[k]                    # (L, 1, S, K, hd)
+                dst = self.cache[k]
+                dst[:, slot].zero_()
+                dst[:, slot, :src.shape[2]] = src[:, 0]
+        for k in ("conv", "ssm"):
+            if k in self.cache:
+                self.cache[k][:, slot] = pcache[k][:, 0]
         self.cache["len"][slot] = plen
 
     def _admit(self):

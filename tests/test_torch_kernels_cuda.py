@@ -633,6 +633,14 @@ def _check_qmatmul(got, ref, dtype):
     (64, 512, 96, 4, 128, torch.float32, "gemv"),
     (40, 8192, 2048, 4, -1, torch.bfloat16, "gemv"),    # 16-byte word loads
     (8, 2048, 2048, 8, 32, torch.bfloat16, "gemv"),     # groups < K tile
+    # the LM families' served linears (W4, one scale a row, bf16)
+    (8, 2048, 8512, 4, -1, torch.bfloat16, "gemv"),     # mamba2 in_proj
+    (181, 2048, 8512, 4, -1, torch.bfloat16, "mma"),    # ... at a prefill
+    (8, 4096, 2048, 4, -1, torch.bfloat16, "gemv"),     # mamba2 out_proj
+    (8, 1536, 1536, 4, -1, torch.bfloat16, "gemv"),     # granite wq / wo
+    (8, 1536, 512, 4, -1, torch.bfloat16, "gemv"),      # granite wk / wv
+    (150, 1536, 512, 4, -1, torch.bfloat16, "mma"),     # ... at a prefill
+    (4096, 1600, 6482, 4, -1, torch.bfloat16, "mma"),   # hymba in_proj
 ])
 def test_packed_qmatmul_variants_match_plain(cuda, m, k, n, bits, gs, dtype,
                                              variant):
@@ -671,6 +679,12 @@ def test_packed_qmatmul_variants_match_plain(cuda, m, k, n, bits, gs, dtype,
     (2, 300, 8, 6, 128, 4, (300, 150), 0, None, torch.bfloat16),
     (1, 500, 1, 5, 64, 8, (500,), 0, None, torch.float16),
     (2, 200, 1, 7, 256, 2, (200, 31), 64, 30.0, torch.float32),
+    # hymba-1.5b (5 KV heads of 5, a 1024 window crossed) and
+    # paligemma-3b (1 KV head of 8 at head_dim 256), INT4 as served
+    (4, 1040, 5, 5, 64, 4, (1040, 1030, 1025, 1024), 1024, None,
+     torch.bfloat16),
+    (4, 1040, 5, 5, 64, 4, (1040, 1040, 700, 1), 0, None, torch.bfloat16),
+    (4, 336, 1, 8, 256, 4, (336, 336, 300, 257), 0, None, torch.bfloat16),
 ])
 def test_kv_attention_split_kernel_matches_plain(cuda, b, s, kh, g, hd,
                                                  bits, lens, window, cap,

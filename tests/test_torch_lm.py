@@ -1,7 +1,8 @@
 """The LM serving path of the port: configs, ``packed_qmatmul``,
 ``kv_attention``, ``models/layers.py``, ``models/transformer.py`` (dense
-family), ``models/api.py``, ``serve/engine.py``, ``launch/serve.py`` and
-the LM side of ``convert.py``.
+families; the others are in test_torch_families.py), ``models/api.py``,
+``serve/engine.py``, ``launch/serve.py`` and the LM side of
+``convert.py``.
 
 Inputs come from numpy seeds (or from JAX params converted with
 ``convert``) and go through ``repro`` on its default ``jnp`` backend and
@@ -43,7 +44,6 @@ from repro_torch.kernels.kv_attention import ops as kv_ops
 from repro_torch.kernels.kv_attention import ref as kv_ref
 from repro_torch.kernels.packed_qmatmul import ops as qmm_ops
 from repro_torch.kernels.packed_qmatmul import ref as qmm_ref
-from repro_torch.models import api
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.quant.formats import PrecisionConfig
@@ -377,14 +377,6 @@ def test_init_matches_repro_shapes_and_scales():
             fan_in = lin["w"].shape[0]
             assert abs(float(lin["w"].std()) * fan_in ** 0.5
                        - 2 ** 0.5) < 0.15
-
-
-@pytest.mark.parametrize("arch", ("whisper-base", "granite-moe-3b-a800m",
-                                  "mamba2-1.3b", "hymba-1.5b",
-                                  "paligemma-3b"))
-def test_families_left_out_raise(arch):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        api.get_model(configs.get_config(arch, smoke=True))
 
 
 def test_left_out_features_raise():
