@@ -178,6 +178,21 @@
    launches.
    moonshot-v1-16b-a3b (~56 GB in bf16) is held only on the CPU.
 
+8. The distributed layer as one NCCL rank (``distributed_phase``, last,
+   so that no earlier number moves): a one-rank NCCL group from a
+   ``FileStore`` and a (1, 1) ``("data", "model")`` mesh; olmo-1b at full
+   width (bf16, W4 QAT, batch 8 x 128) for 3 ``make_train_step`` steps
+   on params placed by ``to_shardings``, losses and params within rtol
+   1e-5 of 3 unsharded steps from the same params (ms a step, peak
+   memory); ``tree_ef_allreduce_mean`` over NCCL on one step's gradient
+   tree, bit-exact against ``tree_ef_plain`` (two rounds, ms); the placed
+   params saved from the mesh and ``restore(shardings=)``d, bit-equal;
+   vgg9 INT4 ``fusion=()`` / ``"auto"`` and resnet18 ``"auto"`` through
+   ``SNNServeEngine(data_parallel=True)``: logits bit-equal and launch
+   counts equal to ``data_parallel=False``, images/s of both.  More
+   than one rank on a mesh axis needs more cards: the CPU tests run
+   those over gloo.
+
 Exits non-zero on any failure and without a card.  The line before the
 last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3281,6 +3296,261 @@ def train_phase(dev, card):
     return {k: v for k, v in launches.items() if v}
 
 
+def _dp_serve(dev, model, images, data_parallel):
+    """16 requests through ``SNNServeEngine(max_batch=8)``: (launches,
+    logits, images/s, engine)."""
+    import numpy as np
+
+    from repro_torch.deploy import SNNEngineConfig, SNNRequest, SNNServeEngine
+
+    eng = SNNServeEngine(model, SNNEngineConfig(
+        max_batch=8, data_parallel=data_parallel), device=dev)
+    eng.warmup()
+    counters = _kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for uid in range(len(images)):
+        eng.add_request(SNNRequest(uid=uid, image=images[uid]))
+    eng.run_until_done()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    logits = np.stack([eng.pop_result(u).logits for u in range(len(images))])
+    return launches, logits, len(images) / wall, eng
+
+
+def distributed_phase(dev, card):
+    """The distributed layer on the card, as one NCCL rank:
+
+    1. a one-rank NCCL group from a ``FileStore`` in a temp dir and a
+       (1, 1) ``("data", "model")`` mesh on the card (``make_host_mesh``);
+    2. olmo-1b at full width (16 layers, bf16, W4 QAT), batch 8 x 128:
+       3 steps of ``make_train_step`` on params and moments placed by
+       ``to_shardings`` and a batch placed by ``batch_spec``, against 3
+       unsharded steps from the same initial params: losses within rtol
+       1e-5; the params' share of bit-equal elements and largest
+       difference printed beside a second unsharded run's (the
+       embedding's backward accumulates atomically, so no two runs are
+       bit-equal), the largest asserted under 1e-2 of the leaf's largest
+       |value|; ms a step and peak memory of each;
+    3. ``tree_ef_allreduce_mean`` over NCCL on one step's gradient tree,
+       twice (the second round re-injects the first's error), bit-exact
+       against ``tree_ef_plain`` (the same arithmetic, no collectives),
+       with its ms;
+    4. the placed params saved from the mesh and ``restore(shardings=)``d
+       onto it: bit-equal, the placements asked for;
+    5. vgg9 INT4 ``fusion=()`` and ``"auto"`` and resnet18 ``"auto"`` at
+       full width, 16 requests through ``SNNServeEngine(data_parallel=
+       True)`` (one replica: one card) and with ``data_parallel=False``:
+       logits bit-equal, the same launch counts, images/s of both.
+
+    The group is destroyed at the end.  Returns the data-parallel serve
+    runs' launches."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.deploy import deploy, deploy_config
+    from repro_torch.distributed import compression as C
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import snn_cnn, transformer
+    from repro_torch.quant.formats import PrecisionConfig
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import TrainConfig
+    from repro_torch.tree import leaves, map_tree, unflatten_like
+    from torch.distributed.tensor import DTensor
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1)
+        print(f"distributed: backend {dist.get_backend()}, world "
+              f"{dist.get_world_size()}, mesh {mesh} [{card}]", flush=True)
+
+        # 2. the sharded step against the unsharded one
+        cfg = dataclasses.replace(get_config("olmo-1b"),
+                                  precision=PrecisionConfig(bits=4,
+                                                            group_size=-1))
+        ocfg = TrainConfig().opt
+        step = make_train_step(cfg, ocfg)
+        batches = [_lm_batch(cfg, 8, 128, i, dev) for i in range(3)]
+        ref = transformer.init(0, cfg, device=dev)
+        sharded = shd.distribute(
+            map_tree(lambda t: t.clone(), ref),
+            shd.to_shardings(shd.param_specs(ref, mesh), mesh))
+
+        def run(params, placed):
+            state = opt.init(params)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, times = [], []
+            for b in batches:
+                if placed:
+                    b = {k: shd.place(v, shd.NamedSharding(
+                        mesh, shd.batch_spec(k, v.shape, mesh)))
+                        for k, v in b.items()}
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, b)
+                losses.append(float(m["loss"]))
+                times.append(time.perf_counter() - t0)
+            return (params, losses, times,
+                    torch.cuda.max_memory_allocated() / 2 ** 30)
+
+        ref, ref_l, ref_t, ref_mem = run(ref, False)
+        sharded, sh_l, sh_t, sh_mem = run(sharded, True)
+        if not isinstance(leaves(sharded)[0], DTensor):
+            raise AssertionError("the sharded step dropped the placements")
+        # the embedding's backward (an index_put with accumulate, atomic
+        # on the card) is not bit-reproducible: a second unsharded run
+        # from the same params shows the run-to-run floor
+        again = transformer.init(0, cfg, device=dev)
+        again, again_l, _, _ = run(again, False)
+
+        def agree(params):
+            """(share of bit-equal elements, max |diff| over the leaf's
+            max |value|) against the first unsharded run."""
+            eq = n = 0
+            worst = 0.0
+            for a, b in zip(leaves(params), leaves(ref)):
+                a = a.full_tensor() if isinstance(a, DTensor) else a
+                a, b = a.detach(), b.detach()
+                eq += int(torch.sum(a == b))
+                n += b.numel()
+                worst = max(worst, float(torch.max(torch.abs(
+                    a.float() - b.float())) / torch.max(torch.abs(
+                        b.float())).clamp_min(1e-30)))
+            return eq / n, worst
+
+        sh_eq, sh_worst = agree(sharded)
+        re_eq, re_worst = agree(again)
+        del again
+        if not np.allclose(sh_l, ref_l, rtol=1e-5, atol=0) or \
+                sh_worst > 1e-2:
+            raise AssertionError(f"sharded step: losses {sh_l} vs "
+                                 f"unsharded {ref_l}; params max diff "
+                                 f"{sh_worst:.3e} of the leaf's largest")
+        ms = lambda ts: ", ".join(f"{t * 1e3:.1f}" for t in ts)
+        print(f"distributed: olmo-1b full width ({cfg.n_layers} layers, "
+              f"{cfg.dtype}, W4 QAT), batch 8 x 128, 3 steps on params placed by "
+              f"to_shardings on the (1, 1) mesh vs unsharded [{card}]: "
+              f"losses {', '.join(f'{x:.6f}' for x in sh_l)} vs "
+              f"{', '.join(f'{x:.6f}' for x in ref_l)} (a second unsharded "
+              f"run: {', '.join(f'{x:.6f}' for x in again_l)}); params "
+              f"after 3 steps bit-equal at {sh_eq:.6f} of elements, max "
+              f"diff {sh_worst:.3e} of the leaf's largest (second "
+              f"unsharded run: {re_eq:.6f}, {re_worst:.3e}); ms a step "
+              f"(first step warm) sharded {ms(sh_t)}, unsharded "
+              f"{ms(ref_t)}; peak {sh_mem:.2f} / {ref_mem:.2f} GiB",
+              flush=True)
+
+        # 3. EF-int8 over NCCL on one step's gradients
+        flat = leaves(ref)
+        for p in flat:
+            p.requires_grad_(True)
+        loss = transformer.loss_fn(ref, cfg, batches[0])
+        grads = unflatten_like(ref, [g.float() for g in torch.autograd.grad(
+            loss, flat, materialize_grads=True)])
+        for p in flat:
+            p.requires_grad_(False)
+        del loss
+        errs = map_tree(torch.zeros_like, grads)
+        group = mesh.get_group("data")
+        n_el = sum(g.numel() for g in leaves(grads))
+        for rnd in (1, 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, new_errs = C.tree_ef_allreduce_mean(grads, errs, group)
+            torch.cuda.synchronize()
+            t_ef = time.perf_counter() - t0
+            (p_out,), (p_err,) = C.tree_ef_plain([grads], [errs])
+            same = all(torch.equal(a, b) for a, b in zip(
+                leaves(out) + leaves(new_errs),
+                leaves(p_out) + leaves(p_err)))
+            if not same:
+                raise AssertionError(f"EF-int8 round {rnd}: NCCL result "
+                                     f"differs from the plain version")
+            rel = float(torch.sqrt(sum(torch.sum((a - b) ** 2) for a, b in
+                                       zip(leaves(out), leaves(grads))))
+                        / torch.sqrt(sum(torch.sum(b ** 2)
+                                         for b in leaves(grads))))
+            print(f"distributed: tree_ef_allreduce_mean over NCCL, round "
+                  f"{rnd} ({len(leaves(grads))} leaves, {n_el} elements): "
+                  f"bit-exact against tree_ef_plain, {t_ef * 1e3:.1f} ms, "
+                  f"relative error of the mean gradient {rel:.3e} [{card}]",
+                  flush=True)
+            errs = new_errs
+        del grads, out, new_errs, p_out, p_err, errs
+
+        # 4. save from the mesh, restore onto it
+        ck = ROOT / "build" / "chip_smoke_dist"
+        shutil.rmtree(ck, ignore_errors=True)
+        cm = CheckpointManager(ck)
+        t0 = time.perf_counter()
+        cm.save(1, sharded)
+        t_save = time.perf_counter() - t0
+        shs = shd.to_shardings(shd.param_specs(sharded, mesh), mesh)
+        like = map_tree(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device="meta"), sharded)
+        t0 = time.perf_counter()
+        back = cm.restore(1, like, shardings=shs)
+        t_restore = time.perf_counter() - t0
+        for a, b, s in zip(leaves(back), leaves(sharded), leaves(shs)):
+            if tuple(a.placements) != s.placements or \
+                    not torch.equal(a.full_tensor(), b.full_tensor()):
+                raise AssertionError("restore(shardings=) differs")
+        shutil.rmtree(ck, ignore_errors=True)
+        print(f"distributed: {len(leaves(sharded))} placed leaves "
+              f"({sum(t.numel() * t.element_size() for t in leaves(ref)) / 1e9:.2f} GB) "
+              f"saved from the mesh in {t_save:.1f} s and restored with "
+              f"shardings in {t_restore:.1f} s: bit-equal, placements as "
+              f"asked", flush=True)
+        del ref, sharded, back, like
+        torch.cuda.empty_cache()
+
+        # 5. data-parallel serving
+        runs = {}
+        for name, fusion in (("vgg9", ()), ("vgg9", "auto"),
+                             ("resnet18", "auto")):
+            scfg = deploy_config(name, 4, smoke=False, fusion=fusion)
+            model = deploy(snn_cnn.init(0, scfg, device=dev), scfg,
+                           device=dev)
+            images = np.random.default_rng(0).random(
+                (16, scfg.img_size, scfg.img_size,
+                 scfg.in_channels)).astype(np.float32)
+            l0, y0, r0, _ = _dp_serve(dev, model, images, False)
+            l1, y1, r1, eng = _dp_serve(dev, model, images, True)
+            label = f"{name} fusion={fusion!r}"
+            if l1 != l0 or not np.array_equal(y1, y0):
+                raise AssertionError(f"data-parallel {label}: launches "
+                                     f"{l1} vs {l0}, logits equal "
+                                     f"{np.array_equal(y1, y0)}")
+            runs[f"dp {name} {'auto' if fusion else 'off'}"] = l1
+            print(f"distributed: {label} INT4 full width, 16 requests, "
+                  f"SNNServeEngine(data_parallel=True) on "
+                  f"{len(eng.devices)} replica(s) {eng.devices}, buckets "
+                  f"{eng.buckets}: logits bit-equal to data_parallel="
+                  f"False, launches {l1} (the same); {r1:.1f} images/s vs "
+                  f"{r0:.1f} images/s [{card}]", flush=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"distributed phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -3383,6 +3653,17 @@ def main() -> int:
                            "blocks.6.conv2", "blocks.6.proj"]},
         "obs launcher vgg9 auto": {"fused_group": ["vgg9"],
                                    "fused_nce": ["fc1"]},
+        # the distributed phase: SNNServeEngine(data_parallel=True)
+        "dp vgg9 off": {"fused_conv": ["convs.1", "convs.2", "convs.3",
+                                       "convs.4"], "fused_nce": ["fc1"]},
+        "dp vgg9 auto": {"fused_group": ["vgg9"], "fused_nce": ["fc1"]},
+        "dp resnet18 auto": {
+            "fused_group": ["blocks.0", "blocks.0", "blocks.3", "blocks.5",
+                            "blocks.7"],
+            "fused_conv": ["blocks.2.conv1", "convs.3", "blocks.2.proj",
+                           "blocks.4.conv1", "blocks.4.conv2",
+                           "blocks.4.proj", "blocks.6.conv1",
+                           "blocks.6.conv2", "blocks.6.proj"]},
         "resnet18 auto": {
             "fused_group": ["blocks.0", "blocks.0", "blocks.3", "blocks.5",
                             "blocks.7"],
@@ -3474,6 +3755,8 @@ def main() -> int:
     # last: it profiles whole launcher runs (every host thread), after
     # the phases whose profiles count kernel events
     runs.update(obs_phase(dev, smi))
+    # after every other phase, so that their numbers do not move
+    runs.update(distributed_phase(dev, smi))
     print("kernel record: ms, plain_ms, library_ms and bound_ms are device "
           "time per call (torch.profiler), summed over the distinct "
           "geometries the main paths launch the kernel at (one call each; "
@@ -3481,7 +3764,8 @@ def main() -> int:
           "each serve prompt length and at M=4096; geometries also holds "
           "M=256, which no path launches); launches are summed over the "
           "paths that launch the kernel (the four served SNN paths, 16 "
-          "requests in 2 batches each; the async vgg9 path, 128 requests; "
+          "requests in 2 batches each, and the distributed phase's three "
+          "data-parallel ones, the same; the async vgg9 path, 128 requests; "
           "the obs phase's telemetry and attribution passes, one B=2 "
           "forward each, on vgg9 off/auto and resnet18 auto, and its "
           "launcher run, vgg9 auto: 4 warmup forwards, both passes and 16 "

@@ -40,7 +40,13 @@ registry disabled (the default) every instrument is a shared no-op.
 ``attach_watchdog`` adds an SLO watchdog checked once a microbatch and
 reported by ``health()["watchdog"]``.
 
-Not ported yet: ``data_parallel`` (which raises).
+``data_parallel=True`` is JAX's ``shard_map`` over the local devices'
+``data`` axis, done by hand: the engine keeps one replica of the package
+on every local device of its device's type (:func:`local_devices`),
+rounds every bucket up to a multiple of their count, splits each padded
+bucket into equal slices, runs slice ``i`` on device ``i``'s kernels and
+concatenates the logits in order on the engine's device.  On a host
+with one card that is one replica, the engine's own forward.
 """
 
 from __future__ import annotations
@@ -96,10 +102,10 @@ class SNNEngineConfig:
     # batch-size buckets; () = powers of two up to max_batch.  A partial
     # microbatch pads up to the next bucket.
     buckets: Tuple[int, ...] = ()
-    # data-parallel serving is not ported yet (raises)
+    # one package replica per local device, the batch split over them
     data_parallel: bool = False
 
-    def resolved_buckets(self) -> Tuple[int, ...]:
+    def resolved_buckets(self, n_dev: int = 1) -> Tuple[int, ...]:
         bks = self.buckets
         if not bks:
             bks, b = [], 1
@@ -107,7 +113,17 @@ class SNNEngineConfig:
                 bks.append(b)
                 b *= 2
             bks.append(self.max_batch)
-        return tuple(sorted(set(bks)))
+        up = lambda b: -(-b // n_dev) * n_dev  # ceil to a device multiple
+        return tuple(sorted({up(b) for b in bks}))
+
+
+def local_devices(device: torch.device) -> List[torch.device]:
+    """Every local device of ``device``'s type: the replicas of a
+    data-parallel engine (one for the CPU)."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
 
 
 class SNNServeEngine:
@@ -124,11 +140,12 @@ class SNNServeEngine:
         if not cfg.int_path:
             raise ValueError("SNNServeEngine serves the packed integer "
                              "path (cfg needs int_deploy + quantized)")
-        if ecfg.data_parallel:
-            raise NotImplementedError("data_parallel serving is not yet "
-                                      "ported to repro_torch")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        self.devices = (local_devices(self.device) if ecfg.data_parallel
+                        else [self.device])
+        self._replicas = ([self.model] if len(self.devices) == 1
+                          else [model.to(d) for d in self.devices])
         self.ecfg = ecfg
         self.cfg = cfg
         self.queue: deque = deque()
@@ -138,7 +155,7 @@ class SNNServeEngine:
         # threads: the warm set and the running totals each take a lock
         self._compile_lock = threading.Lock()
         self._acct_lock = threading.Lock()
-        self.buckets = ecfg.resolved_buckets()
+        self.buckets = ecfg.resolved_buckets(len(self.devices))
         self._warm: set = set()
         self.compile_count = 0
         # O(1) accounting (a long-lived server keeps no per-batch records)
@@ -197,7 +214,16 @@ class SNNServeEngine:
 
     def _forward(self, images: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            return self.model.apply(images)
+            if len(self._replicas) == 1:
+                return self.model.apply(images)
+            outs = []
+            for rep, dev, x in zip(self._replicas, self.devices,
+                                   images.chunk(len(self._replicas))):
+                with (torch.cuda.device(dev) if dev.type == "cuda"
+                      else contextlib.nullcontext()):
+                    y = rep.apply(x.to(dev))
+                outs.append(y.to(self.device))
+            return torch.cat(outs)
 
     def _ensure_warm(self, bucket: int) -> None:
         """The JAX engine's compile-cache step: the first use of a bucket

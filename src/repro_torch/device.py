@@ -18,6 +18,14 @@ def resolve_device(device="cuda") -> torch.device:
             f"device {str(d)!r} requested but torch.cuda.is_available() is "
             f"False; pass device='cpu' to run the plain PyTorch versions on "
             f"the CPU")
-    if d.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {str(d)!r} (cuda or cpu)")
+    if d.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {str(d)!r} (cuda, cpu or "
+                         f"meta)")
     return d
+
+
+def generator(device: torch.device, seed: int) -> torch.Generator:
+    """A seeded generator for random init on ``device`` (a CPU one for
+    ``meta``, which has none and draws nothing)."""
+    dev = "cpu" if device.type == "meta" else device
+    return torch.Generator(device=dev).manual_seed(seed)

@@ -1,5 +1,7 @@
-"""Checkpointing and fault tolerance for one process.
+"""The distributed layer on ``torch.distributed``.
 
-Ported: ``checkpoint`` and ``fault_tolerance``.  Not ported yet:
-``sharding``, ``compression`` and ``pipeline``.
+``sharding`` (specs, placements, ``distribute``), ``compression``
+(EF-int8 gradient all-reduce), ``pipeline`` (GPipe over the pod axis),
+``checkpoint`` (atomic async checkpoints, elastic restore onto a mesh)
+and ``fault_tolerance``.
 """

@@ -21,8 +21,13 @@ Port of ``repro.distributed.checkpoint`` in its format:
   the writer raised;
 * **retention**: the newest ``keep`` checkpoints stay.
 
-Restore takes the ``shardings`` parameter of the JAX version and raises
-for any value but ``None``: ``distributed.sharding`` is not ported.
+A tree of DTensors (params placed on a mesh) saves as the same files a
+single-device save of the same values writes: every rank gathers each
+leaf (``full_tensor``, a collective, so every rank calls ``save``), rank
+0 writes, and the others wait for it at a barrier (in ``save``, or in
+``wait`` after an async save).  ``restore(..., shardings=)`` places each
+leaf as its :class:`~repro_torch.distributed.sharding.NamedSharding`
+says, on whatever mesh that names: elastic resharding on load.
 """
 
 from __future__ import annotations
@@ -38,8 +43,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
-from repro_torch.tree import leaves_with_path, unflatten_like
+from repro_torch.tree import leaves, leaves_with_path, unflatten_like
 
 _BF16_DESCR = "<V2"       # what np.save writes for an ml_dtypes bfloat16
 
@@ -49,7 +56,10 @@ def _path_key(path) -> str:
 
 
 def _snapshot(leaf: torch.Tensor) -> torch.Tensor:
-    """A host copy of ``leaf`` that no later in-place update can touch."""
+    """A host copy of ``leaf`` that no later in-place update can touch
+    (a DTensor's whole value)."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     return leaf.detach().to("cpu", copy=True,
                             memory_format=torch.contiguous_format)
 
@@ -94,19 +104,28 @@ class CheckpointManager:
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._barrier = False     # an async save from a mesh is pending
 
     # -- save ---------------------------------------------------------------
 
     def save(self, step: int, tree: Any, *, blocking: bool = True) -> None:
+        sharded = any(isinstance(t, DTensor) for t in leaves(tree))
         host = [(path, _snapshot(leaf))
                 for path, leaf in leaves_with_path(tree)]
+        writer = not sharded or dist.get_rank() == 0
         if blocking:
-            self._write(step, host)
+            if writer:
+                self._write(step, host)
+            if sharded:
+                dist.barrier()
         else:
             self.wait()
-            self._thread = threading.Thread(
-                target=self._write_guarded, args=(step, host), daemon=True)
-            self._thread.start()
+            if writer:
+                self._thread = threading.Thread(
+                    target=self._write_guarded, args=(step, host),
+                    daemon=True)
+                self._thread.start()
+            self._barrier = sharded
 
     def save_async(self, step: int, tree: Any) -> None:
         self.save(step, tree, blocking=False)
@@ -115,6 +134,9 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -169,15 +191,21 @@ class CheckpointManager:
                 device=None) -> Any:
         """A tree of ``like``'s structure (tensors; ``meta`` ones will do)
         holding checkpoint ``step``, each leaf cast to its ``like`` leaf's
-        dtype and placed on ``device`` (default: that leaf's device)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore(shardings=...): distributed.sharding is not "
-                "ported to repro_torch; restore onto one device")
+        dtype and placed on ``device`` (default: that leaf's device), or,
+        with ``shardings`` (a tree of ``NamedSharding`` of ``like``'s
+        structure), distributed as each one says."""
+        from repro_torch.distributed.sharding import place
+
         d = self.dir / f"step_{step}"
         manifest = json.loads((d / "MANIFEST.json").read_text())
+        pairs = leaves_with_path(like)
+        shs = (leaves(shardings) if shardings is not None
+               else [None] * len(pairs))
+        if len(shs) != len(pairs):
+            raise ValueError(f"{len(shs)} shardings for {len(pairs)} "
+                             f"leaves")
         out = []
-        for path, leaf in leaves_with_path(like):
+        for (path, leaf), sh in zip(pairs, shs):
             key = _path_key(path)
             if key not in manifest["leaves"]:
                 raise KeyError(f"checkpoint missing leaf {key}")
@@ -185,6 +213,10 @@ class CheckpointManager:
             t = _load_leaf(d / f"{key}.npy", want["dtype"])
             if list(t.shape) != want["shape"]:
                 raise ValueError(f"corrupt leaf {key}")
+            if sh is not None:
+                out.append(place(t.to(device=sh.mesh.device_type,
+                                      dtype=leaf.dtype), sh))
+                continue
             dev = device if device is not None else leaf.device
             if torch.device(dev).type == "meta":
                 raise ValueError("restore onto meta tensors: pass device=")

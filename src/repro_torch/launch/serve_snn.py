@@ -7,7 +7,7 @@ Run:  PYTHONPATH=src python -m repro_torch.launch.serve_snn [--full]
       [--model vgg9|vgg16|resnet18] [--fusion off|auto] [--bits 4]
       [--requests 32] [--max-batch 8] [--package PATH] [--show-graph]
       [--metrics [PATH]] [--trace [PATH]] [--profile [DIR]]
-      [--device cuda|cpu]
+      [--data-parallel] [--device cuda|cpu]
 
 ``--fusion auto`` plans the model's fusion groups (vgg9: one chain of
 convs.1-4 and the pools; resnet18: the five stride-1 block bodies), each
@@ -42,7 +42,11 @@ these flags the hot path keeps its no-op instruments.
 ``torch.profiler`` into DIR (default ``build/trace/serve_snn``): a
 Chrome/Perfetto JSON with the card's kernels and one
 ``snn_serve_step/b<bucket>`` range per microbatch.
-``--data-parallel`` is not ported yet.
+
+``--data-parallel`` keeps one package replica on every local card
+(``SNNEngineConfig(data_parallel=True)``), rounds the buckets up to a
+multiple of the card count and splits each microbatch evenly over the
+cards; on a host with one card it serves as without the flag.
 
 ``--device`` defaults to ``cuda``; without a card the launcher raises
 unless ``--device cpu`` is given.
@@ -114,6 +118,9 @@ def main(argv=None):
                     help="keep the process (and --metrics-port server) "
                          "alive S seconds after serving, for external "
                          "scrapes")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="one package replica per local device, each "
+                         "microbatch split evenly over them")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -143,8 +150,9 @@ def main(argv=None):
         model = load(args.package, device=device)
         print(f"saved + reloaded package: {args.package}")
 
-    eng = SNNServeEngine(model, SNNEngineConfig(max_batch=args.max_batch),
-                         device=device)
+    eng = SNNServeEngine(model, SNNEngineConfig(
+        max_batch=args.max_batch, data_parallel=args.data_parallel),
+        device=device)
     if cfg.fusion or args.show_graph:
         print(eng.graph_summary())
     aeng = None

@@ -3,11 +3,23 @@
 Port of ``repro.launch.steps``.  Params and optimizer state are the
 port's trees of tensors; the train step updates them in place (and
 returns them, with JAX's signature).
+
+The train step also runs on params, moments and a batch placed on a
+mesh (DTensors, ``distributed.sharding.distribute``): the counterpart of
+JAX's pjit'd step.  It is FSDP over DTensor: each param is all-gathered
+(``full_tensor``), the loss and its gradient are computed on the rank's
+batch shard, and each gradient is reduce-scattered (summed over the mesh
+dims the batch is split on, in float32) into its param's placements,
+where AdamW updates the shards.  Each rank's loss is weighted by its
+share of the global label count, so the summed loss and gradient are
+those of the global batch.  The ``model`` axis holds shards but does
+not split the compute: the forward runs on whole params.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.api import get_model
@@ -30,6 +42,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: opt.OptConfig,
 
     def value_and_grad(params, batch):
         flat = leaves(params)
+        if isinstance(flat[0], DTensor):
+            return _sharded_value_and_grad(mb, params, batch)
         for p in flat:
             p.requires_grad_(True)
         loss = mb.loss_fn(params, batch)
@@ -37,13 +51,15 @@ def make_train_step(cfg: ArchConfig, opt_cfg: opt.OptConfig,
         return loss.detach(), unflatten_like(params, list(grads))
 
     def train_step(params, opt_state, batch):
+        if grad_accum > 1 and isinstance(leaves(params)[0], DTensor):
+            raise NotImplementedError("grad_accum > 1 on a mesh")
         if grad_accum == 1:
             loss, grads = value_and_grad(params, batch)
         else:
             split = {k: v.reshape(grad_accum, v.shape[0] // grad_accum,
                                   *v.shape[1:]) for k, v in batch.items()}
-            grads = map_tree(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = map_tree(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             lsum = torch.zeros((), dtype=torch.float32,
                                device=leaves(params)[0].device)
             for i in range(grad_accum):
@@ -59,6 +75,32 @@ def make_train_step(cfg: ArchConfig, opt_cfg: opt.OptConfig,
         return params, opt_state, metrics
 
     return train_step
+
+
+def _sharded_value_and_grad(mb, params, batch):
+    """(global loss, gradients placed as the params) of DTensor params on
+    a DTensor batch split along its first dim."""
+    flat = leaves(params)
+    mesh = flat[0].device_mesh
+    full = [p.full_tensor().detach().requires_grad_(True) for p in flat]
+    local = {k: v.to_local() for k, v in batch.items()}
+    # the batch's data dims: there, gradients and counts are partial sums
+    split = next(iter(batch.values())).placements
+    partial = [Partial() if pl.is_shard(0) else Replicate() for pl in split]
+
+    def summed(t):
+        return DTensor.from_local(t, mesh, partial,
+                                  run_check=False).full_tensor()
+
+    count = torch.sum(local["labels"] >= 0).to(torch.float32)
+    share = count / torch.clamp_min(summed(count), 1.0)
+    loss = mb.loss_fn(unflatten_like(params, full), local) * share
+    grads = torch.autograd.grad(loss, full, materialize_grads=True)
+    placed = [DTensor.from_local(g.to(torch.float32), mesh, partial,
+                                 run_check=False)
+              .redistribute(mesh, p.placements)
+              for g, p in zip(grads, flat)]
+    return summed(loss.detach()), unflatten_like(params, placed)
 
 
 def make_prefill_step(cfg: ArchConfig):

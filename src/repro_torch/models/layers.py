@@ -141,12 +141,19 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 NEG_INF = -2.0e38
 
 
+#: the context-parallel attention hook (``set_attention_cp``)
+_ATTN_CP = {"hint": None, "q_chunk": None, "kv_chunk": None}
+
+
 def set_attention_cp(hint=None, q_chunk=None, kv_chunk=None) -> None:
-    """The context-parallel attention hint of the JAX package (a GSPMD
-    sharding hook) is not ported."""
-    raise NotImplementedError(
-        "set_attention_cp: the context-parallel attention hint is not "
-        "ported to repro_torch")
+    """Context-parallel attention: ``hint`` is called on the chunked
+    path's query layout ``(B, nq, q_chunk, K, G, hd)`` and its result is
+    used in its place (JAX's sharding-constraint hook; here, e.g., a
+    function that lays the chunks out on a mesh and back).  ``q_chunk``
+    / ``kv_chunk`` override the chunk sizes, and with a hint set every
+    attention with more than ``q_chunk`` queries takes the chunked path.
+    No arguments removes the hook."""
+    _ATTN_CP.update(hint=hint, q_chunk=q_chunk, kv_chunk=kv_chunk)
 
 
 def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
@@ -187,8 +194,12 @@ def attention(
     b, sq, h, hd = q.shape
     sk, kh = k.shape[1], k.shape[2]
     g = h // kh
+    q_chunk = _ATTN_CP["q_chunk"] or q_chunk
+    kv_chunk = _ATTN_CP["kv_chunk"] or kv_chunk
     if chunked is None:
         chunked = sq * sk > 4096 * 4096 // 4 and sq > 1
+        if _ATTN_CP["hint"] is not None and sq > q_chunk:
+            chunked = True    # CP lives on the chunked layout
     dev = q.device
     q_pos = q_offset + torch.arange(sq, dtype=torch.int32, device=dev)
     k_pos = torch.arange(sk, dtype=torch.int32, device=dev)
@@ -214,6 +225,8 @@ def attention(
     else:
         q_pos_p = q_pos
     qc = qg.reshape(b, nq, q_chunk, kh, g, hd)
+    if _ATTN_CP["hint"] is not None:
+        qc = _ATTN_CP["hint"](qc)
     qpc = q_pos_p.reshape(nq, q_chunk)
 
     nk = -(-sk // kv_chunk)

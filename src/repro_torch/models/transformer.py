@@ -52,7 +52,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import generator, resolve_device
 from repro_torch.kernels.kv_attention import ops as kv_ops
 from repro_torch.kernels.kv_attention import ref as kv_ref
 from repro_torch.models import layers as L
@@ -129,7 +129,7 @@ def init(seed: int, cfg: ArchConfig, device="cuda"):
     drawn from a ``torch.Generator`` (so not JAX's numbers)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = generator(dev, seed)
     dt = _dtype(cfg)
     emb = torch.randn((cfg.vocab, cfg.d_model), generator=gen,
                       dtype=torch.float32, device=dev)

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import generator, resolve_device
 from repro_torch.models import layers as L
 
 
@@ -74,7 +74,7 @@ def init(seed: int, cfg: ArchConfig, device="cuda"):
     """Random params from ``seed`` on ``device``: the JAX package's shapes
     and scales, drawn from a ``torch.Generator`` (so not JAX's numbers)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = generator(dev, seed)
     dt = _dt(cfg)
     emb = torch.randn((cfg.vocab, cfg.d_model), generator=gen,
                       dtype=torch.float32, device=dev)

@@ -12,6 +12,12 @@ operation in JAX's order, in float32.
 
 The moments have the params' tree structure, so they live on the
 params' device; ``step`` is a 0-d int32 tensor beside them.
+
+Params placed on a mesh (DTensors, ``distributed.sharding``) get
+DTensor moments with their placements.  :func:`update` then takes the
+gradient norm over the whole tensors (one all-reduce a leaf) and
+updates each rank's shards of params, gradients and moments in place:
+the step is elementwise, so a shard needs nothing from other ranks.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import math
 from typing import Any, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.tree import leaves, map_tree
 
@@ -51,17 +58,29 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init(params) -> dict:
+    """Zero float32 moments shaped, placed and laid out as the params:
+    ``meta`` params give ``meta`` moments, a DTensor param a DTensor
+    moment with its placements."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
 
     first = leaves(params)[0]
     return {"m": map_tree(zeros, params), "v": map_tree(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=first.device)}
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank (a view), a plain tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _sq_sum(g: torch.Tensor) -> torch.Tensor:
+    s = torch.sum(torch.square(g.to(torch.float32)))
+    return s.full_tensor() if isinstance(s, DTensor) else s
+
+
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in leaves(tree)))
+    return torch.sqrt(sum(_sq_sum(g) for g in leaves(tree)))
 
 
 @torch.no_grad()
@@ -79,6 +98,7 @@ def update(grads, state: dict, params, cfg: OptConfig
     bc2 = 1 - torch.pow(b2, step_f)
 
     def upd(p, g, m, v):
+        p, g, m, v = _local(p), _local(g), _local(m), _local(v)
         g = g.to(torch.float32) * scale
         m.copy_(b1 * m + (1 - b1) * g)
         v.copy_(b2 * v + (1 - b2) * g * g)

@@ -13,9 +13,14 @@ grad_norm, dt_s, straggler}``.  Hooks observe; they must not mutate
 state.
 
 The trainer runs on ``device`` (default ``"cuda"``; without a card it
-raises unless given ``device="cpu"``).  ``mesh=`` raises until
-``distributed.sharding`` is ported.  A step's time is taken around the
-step and the read of its loss, which waits for the device.
+raises unless given ``device="cpu"``).  With ``mesh=`` (a ``DeviceMesh``
+or an abstract mesh) it builds ``_pshard``, the params' shardings under
+the sharding rules, from the meta-device param tree, as the JAX trainer
+does; like JAX's, the loop does not read it, so the params stay on
+``device`` unplaced (the sharded step is ``launch.steps.make_train_step``
+on params placed by ``distributed.sharding.distribute``).  A step's time
+is taken around the step and the read of its loss, which waits for the
+device.
 """
 
 from __future__ import annotations
@@ -68,11 +73,8 @@ class Trainer:
                  hooks: Optional[List[Callable[[dict], None]]] = None,
                  registry: Optional["obs.MetricsRegistry"] = None,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...): distributed.sharding is not ported to "
-                "repro_torch; the trainer runs on one device")
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.cfg = cfg
         self.tcfg = tcfg
         self.injector = injector
@@ -96,6 +98,12 @@ class Trainer:
                                     "last step global grad norm")
 
         self._step_fn = make_train_step(cfg, tcfg.opt)
+        if mesh is not None:
+            from repro_torch.distributed import sharding as shd
+            from repro_torch.launch import specs as S
+
+            self._pshard = shd.to_shardings(
+                shd.param_specs(S.param_specs_struct(cfg), mesh), mesh)
 
     # -- state --------------------------------------------------------------
 

@@ -41,6 +41,18 @@ def map_tree(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def map_tree_with_path(fn: Callable, tree, path: Tuple = ()):
+    """``fn(path, leaf)`` over the leaves of ``tree``; returns a new tree
+    of its structure (the paths of :func:`leaves_with_path`)."""
+    if isinstance(tree, dict):
+        return {k: map_tree_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree_with_path(fn, v, path + (i,))
+                          for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
 def unflatten_like(like, flat: list):
     """A tree of ``like``'s structure holding ``flat``'s items in
     :func:`leaves` order."""

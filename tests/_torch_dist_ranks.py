@@ -1,0 +1,177 @@
+"""One rank of a multi-rank case of ``test_torch_distributed.py``.
+
+Run as ``python tests/_torch_dist_ranks.py CASE RANK WORLD DIR``: joins a
+gloo group through ``file://DIR/store``, reads the case's inputs from
+``DIR/inputs.pt``, runs the case and writes what it got to
+``DIR/rank<RANK>.pt``.  Imports no JAX (the ranks are the port alone).
+"""
+
+import sys
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+
+from repro_torch import convert
+from repro_torch.tree import leaves, unflatten_like
+
+
+def case_ef(rank, world, inp):
+    from repro_torch.distributed import compression as C
+
+    g, e = inp["g"][rank], inp["err"][rank]
+    out, new_err = C.ef_int8_allreduce_mean(g, e)
+    codes, _, _ = C._encode(g, e, world)
+    tg, te = C.tree_ef_allreduce_mean(inp["tree_g"][rank],
+                                      inp["tree_e"][rank])
+    return {"out": out, "new_err": new_err, "codes": codes,
+            "tree_out": tg, "tree_err": te}
+
+
+def case_pipe(rank, world, inp):
+    from repro_torch.distributed import pipeline as PP
+
+    cfg = inp["cfg"]
+    mesh = init_device_mesh("cpu", (2, world // 2),
+                            mesh_dim_names=("pod", "data"))
+    params = convert.lm_params_from_numpy(inp["params"], device="cpu")
+    held = PP.stage_params(params, cfg, mesh)
+    flat = leaves(held)
+    for p in flat:
+        p.requires_grad_(True)
+    batch = {k: torch.from_numpy(v).long() for k, v in inp["batch"].items()}
+    loss = PP.make_pipeline_loss(cfg, mesh, n_micro=2,
+                                 data_axis="data")(held, batch)
+    grads = torch.autograd.grad(loss, flat)
+    stage, lo, hi = PP.stage_bounds(cfg, mesh)
+    # JAX's own call: all four data ranks run the whole batch
+    with torch.no_grad():
+        loss_rep = PP.make_pipeline_loss(cfg, mesh, n_micro=4)(params,
+                                                               batch)
+    gt = unflatten_like(held, list(grads))
+    return {"loss": loss.item(), "loss_rep": loss_rep.item(),
+            "stage": stage, "layers": (lo, hi),
+            "grads": convert.lm_params_to_numpy(
+                {"layers": gt["layers"], "embed": gt["embed"]})}
+
+
+def case_step(rank, world, inp):
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.train import optimizer as opt
+
+    cfg = inp["cfg"]
+    mesh = make_host_mesh(2)
+    params = convert.lm_params_from_numpy(inp["params"], device="cpu")
+    pshard = shd.to_shardings(shd.param_specs(params, mesh), mesh)
+    params = shd.distribute(params, pshard)
+    ostate = opt.init(params)
+    batch = {k: shd.place(torch.from_numpy(v).long(), shd.NamedSharding(
+        mesh, shd.batch_spec(k, v.shape, mesh)))
+        for k, v in inp["batch"].items()}
+    step = make_train_step(cfg, inp["opt"])
+    losses = []
+    for _ in range(2):
+        params, ostate, m = step(params, ostate, batch)
+        losses.append(m["loss"].item())
+    full = [p.full_tensor() for p in leaves(params)]
+    placed = [(tuple(p.placements), tuple(p.to_local().shape))
+              for p in leaves(params)]
+    moments = [(tuple(m.placements) == tuple(p.placements))
+               for m, p in zip(leaves(ostate["m"]), leaves(params))]
+    return {"losses": losses, "placed": placed, "moments": moments,
+            "params": convert.lm_params_to_numpy(unflatten_like(params, full))
+            if rank == 0 else None}
+
+
+def case_restore(rank, world, inp):
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.launch.mesh import make_production_mesh
+
+    d = Path(inp["dir"])
+    mesh_a = init_device_mesh("cpu", (4, 2), mesh_dim_names=("data", "model"))
+    mesh_b = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+    tree = inp["tree"]
+    specs = {"w": shd.P("data", "model"), "b": shd.P("model"),
+             "h": shd.P(None, "data")}
+    placed = shd.distribute(tree, shd.to_shardings(specs, mesh_a))
+    cm = CheckpointManager(d / "mesh")
+    cm.save(1, placed)
+    if rank == 0:
+        CheckpointManager(d / "single").save(1, tree)
+    dist.barrier()
+    like = {k: torch.empty_like(v, device="meta") for k, v in tree.items()}
+    sh_b = shd.to_shardings(specs, mesh_b)
+    out = cm.restore(1, like, shardings=sh_b)
+    # jax.device_put's resharding: the mesh-a tree put onto mesh b
+    moved = shd.distribute(placed, sh_b)
+    moved_ok = all(
+        tuple(moved[k].placements) == sh_b[k].placements
+        and torch.equal(moved[k].to_local(), out[k].to_local())
+        for k in tree)
+    refused = []
+    for multi_pod in (False, True):
+        try:
+            make_production_mesh(multi_pod=multi_pod)
+        except RuntimeError as e:
+            refused.append(str(e))
+    return {"refused": refused, "moved_ok": moved_ok, "full": {k: v.full_tensor() for k, v in out.items()},
+            "placements": {k: (tuple(v.placements),
+                               tuple(sh_b[k].placements))
+                           for k, v in out.items()},
+            "local": {k: tuple(v.to_local().shape) for k, v in out.items()}}
+
+
+def case_cp(rank, world, inp):
+    """The CP hint as JAX's test sets it: the chunked query layout laid
+    out ``(data, model, ...)`` on a (2, 4) mesh and gathered back."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    mesh = init_device_mesh("cpu", (2, world // 2),
+                            mesh_dim_names=("data", "model"))
+    params = convert.lm_params_from_numpy(inp["params"], device="cpu")
+    toks = torch.from_numpy(inp["tokens"]).long()
+    seen = []
+
+    def hint(x):
+        seen.append(tuple(x.shape))
+        d = distribute_tensor(x, mesh, [Shard(0), Shard(1)],
+                              src_data_rank=None)
+        seen.append(tuple(d.to_local().shape))
+        return d.full_tensor()
+
+    L.set_attention_cp(hint=hint, q_chunk=16, kv_chunk=16)
+    try:
+        with torch.no_grad():
+            loss = T.loss_fn(params, inp["cfg"], {"tokens": toks,
+                                                  "labels": toks})
+    finally:
+        L.set_attention_cp()
+    return {"loss": loss.item(), "seen": seen}
+
+
+CASES = {"cp": case_cp, "ef": case_ef, "pipe": case_pipe, "step": case_step,
+         "restore": case_restore}
+
+
+def main(case, rank, world, d):
+    rank, world, d = int(rank), int(world), Path(d)
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{d}/store",
+                            rank=rank, world_size=world)
+    try:
+        inp = torch.load(d / "inputs.pt", weights_only=False)
+        out = CASES[case](rank, world, inp)
+        torch.save(out, d / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(*sys.argv[1:])

@@ -33,7 +33,7 @@ from repro_torch.distributed.fault_tolerance import (
 )
 from repro_torch.train import optimizer as opt
 from repro_torch.train.trainer import TrainConfig, Trainer
-from repro_torch.tree import leaves, map_tree
+from repro_torch.tree import leaves, leaves_with_path, map_tree
 
 
 def _np_tree():
@@ -194,10 +194,38 @@ def test_checkpoint_atomic_no_partial(tmp_path, monkeypatch):
 
 
 def test_checkpoint_restore_checks_and_refuses_shardings(tmp_path):
+    """``shardings=`` places every leaf on the mesh it names (here a
+    one-rank gloo mesh) and refuses a shardings tree that does not match
+    ``like``; a missing or corrupt leaf raises."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding as shd
+
+    cm = CheckpointManager(tmp_path / "ck")
+    cm.save(1, _tree())
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        specs = shd.param_specs(_tree(), mesh)
+        out = cm.restore(1, _tree(), shardings=shd.to_shardings(specs, mesh))
+        for (_, got), (_, want), (_, spec) in zip(
+                leaves_with_path(out), leaves_with_path(_tree()),
+                leaves_with_path(shd.to_shardings(specs, mesh))):
+            assert isinstance(got, DTensor)
+            assert got.placements == spec.placements
+            assert got.dtype == want.dtype
+            assert torch.equal(got.full_tensor(), want)
+        with pytest.raises(ValueError, match="shardings for"):
+            cm.restore(1, _tree(), shardings={"a": shd.to_shardings(
+                specs, mesh)["a"]})
+    finally:
+        dist.destroy_process_group()
     cm = CheckpointManager(tmp_path)
     cm.save(1, _tree())
-    with pytest.raises(NotImplementedError, match="sharding"):
-        cm.restore(1, _tree(), shardings=object())
     with pytest.raises(KeyError, match="missing leaf extra"):
         cm.restore(1, {**_tree(), "extra": torch.zeros(2)})
     np.save(tmp_path / "step_1" / "a.npy", np.zeros((3,), np.float32))

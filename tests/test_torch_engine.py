@@ -121,9 +121,20 @@ def test_engine_validation_and_close(model):
     assert stats["requests"] == 3
     with pytest.raises(RuntimeError, match="closed"):
         eng.add_request(SNNRequest(uid=9, image=images[0]))
-    with pytest.raises(NotImplementedError, match="data_parallel"):
-        SNNServeEngine(model, SNNEngineConfig(data_parallel=True),
-                       device="cpu")
+    # data-parallel on the CPU: one replica (the CPU is one device), the
+    # buckets of one device, the same logits
+    dp = SNNServeEngine(model, SNNEngineConfig(max_batch=2,
+                                               data_parallel=True),
+                        device="cpu")
+    assert dp.devices == [torch.device("cpu")] and len(dp._replicas) == 1
+    assert dp.buckets == eng.buckets == JEngineConfig(
+        max_batch=2).resolved_buckets(1)
+    for uid, img in enumerate(images):
+        dp.add_request(SNNRequest(uid=uid, image=img))
+    dp.close()
+    for uid in range(3):
+        np.testing.assert_array_equal(dp.pop_result(uid).logits,
+                                      eng.pop_result(uid).logits)
 
 
 def test_run_until_done_raises_on_truncation(model):

@@ -380,10 +380,28 @@ def test_init_matches_repro_shapes_and_scales():
 
 
 def test_left_out_features_raise():
-    """Training, remat and the spiking FFN are ported (their parity tests
-    are in test_torch_train.py); the context-parallel hint is not."""
-    with pytest.raises(NotImplementedError, match="context-parallel"):
+    """Nothing of the LM path is left out now: the context-parallel hint
+    (``set_attention_cp``) forces the chunked path for more than
+    ``q_chunk`` queries, sees its ``(B, nq, q_chunk, K, G, hd)`` query
+    layout and, as JAX's, leaves the result as it was; no arguments
+    remove it.  (Multi-rank CP: ``test_torch_distributed.py``.)"""
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((2, 40, 4, 8), generator=g)
+    k = torch.randn((2, 40, 2, 8), generator=g)
+    v = torch.randn((2, 40, 2, 8), generator=g)
+    plain = L.attention(q, k, v, scale=8 ** -0.5)
+    seen = []
+    L.set_attention_cp(hint=lambda x: seen.append(tuple(x.shape)) or x,
+                       q_chunk=16, kv_chunk=8)
+    try:
+        hinted = L.attention(q, k, v, scale=8 ** -0.5)
+    finally:
         L.set_attention_cp()
+    assert seen == [(2, 3, 16, 2, 2, 8)]
+    torch.testing.assert_close(hinted, plain, rtol=1e-5, atol=1e-6)
+    assert L._ATTN_CP == {"hint": None, "q_chunk": None, "kv_chunk": None}
+    L.attention(q, k, v, scale=8 ** -0.5)
+    assert len(seen) == 1
 
 
 # --- the serving engine -------------------------------------------------------

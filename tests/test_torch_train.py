@@ -571,9 +571,29 @@ def test_trainer_tracks_the_repro_trainer(tmp_path, monkeypatch):
 
 
 def test_trainer_refuses_a_mesh(tmp_path):
+    """``Trainer(mesh=)`` no longer refuses: as JAX's, it builds
+    ``_pshard`` (the param shardings of the meta-device param tree under
+    the sharding rules) and, as JAX's, does not place the params with
+    it."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import specs as S
+    from repro_torch.launch.mesh import make_abstract_mesh
+
     cfg = configs.get_config("olmo-1b", smoke=True)
-    with pytest.raises(NotImplementedError, match="sharding"):
-        Trainer(cfg, _tcfg(tmp_path), mesh=object(), device="cpu")
+    mesh = make_abstract_mesh((4, 2), ("data", "model"))
+    tr = Trainer(cfg, _tcfg(tmp_path), mesh=mesh, device="cpu")
+    want = shd.param_specs(S.param_specs_struct(cfg), mesh)
+    got = leaves(tr._pshard)
+    assert [s.spec for s in got] == [s.spec for s in leaves(
+        shd.to_shardings(want, mesh))]
+    assert all(s.mesh is mesh for s in got)
+    assert len(got) == len(leaves(api.get_model(cfg).init(0, device="cpu")))
+    assert got[0].spec == ("model", None)           # the embedding
+    assert got[0].placements == (Replicate(), Shard(0))
+    params, _, _ = tr.init_state(0)
+    assert all(type(p) is torch.Tensor for p in leaves(params))
 
 
 def test_train_launcher_smoke_and_resume(tmp_path, capsys):
