@@ -200,6 +200,7 @@ last is the kernels' JSON record; the last line is
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -3551,6 +3552,232 @@ def distributed_phase(dev, card):
     return runs
 
 
+def _dryrun_cell():
+    """The dry run's card cell: the distributed phase's olmo-1b (full
+    width, 16 layers, bf16, W4 QAT), batch 8 x 128, with the dry run's
+    cell rules (remat ``"dots"`` for a train step)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import cell_config
+    from repro_torch.quant.formats import PrecisionConfig
+
+    shape = ShapeConfig("chip_8x128", 128, 8, "train")
+    cfg = dataclasses.replace(get_config("olmo-1b"), precision=PrecisionConfig(
+        bits=4, group_size=-1))
+    return cell_config(cfg, shape), shape
+
+
+def dryrun_one_rank(out_path):
+    """``python chip_smoke.py --dryrun-one-rank OUT``: the card cell
+    (:func:`_dryrun_cell`) dry-run on a one-rank fake group and a (1, 1)
+    mesh, through the counting functions ``run_cell_cfg`` uses; writes
+    the counts and the FLOPs of each op to ``OUT`` (JSON).  Runs in a
+    process of its own: the fake group must not meet the card's NCCL
+    one."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_host_mesh
+
+    cfg, shape = _dryrun_cell()
+    D.fake_group(1)
+    mesh = make_host_mesh(1)
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        fn, args, _ = D.place_cell(cfg, shape, mesh)
+        walker = D.CellWalker(args)
+        with walker:
+            fn(*args)
+    rec = {"flops_per_device": walker.flops,
+           "hbm_bytes_est": walker.hbm,
+           "argument_size_in_bytes": walker.arg_bytes,
+           "temp_size_in_bytes": walker.peak,
+           "collective_bytes": walker.colls,
+           "flops_by_op": walker.flops_by_op,
+           "wall_s": time.perf_counter() - t0}
+    Path(out_path).write_text(json.dumps(rec))
+    return 0
+
+
+def dryrun_phase(dev, card):
+    """The device-free dry run (``launch/dryrun.py``), then the dry run
+    held against the card.
+
+    1. ``python -m repro_torch.launch.dryrun --arch olmo-1b --shape
+       train_4k --force``, then ``--roofline`` for the same cell (its
+       record reused): subprocesses (a fake process group of 256 ranks
+       must not meet this process's NCCL group), full depth, the fake
+       16 x 16 mesh, on the host.  Gate: exit 0, ``ok`` records and the
+       ``[ROOF]`` line.  Prints the record's numbers (a host run of a
+       device-free tool: its wall time is the host's).
+    2. The card cell (:func:`_dryrun_cell`) dry-run on a one-rank fake
+       group (:func:`dryrun_one_rank`, a subprocess), then the real
+       sharded step on the card as one NCCL rank on a (1, 1) mesh, the
+       same params, moments and batch placed by the same specs.  Gates:
+       ``flops_per_device`` equal to ``count_fn_flops`` of the real step
+       (where the card dispatches other ATen ops, they are named and the
+       two held within 1e-3); ``argument_size_in_bytes`` equal to the
+       real inputs' bytes; the predicted peak (arguments + temp) within
+       25% of the step's ``max_memory_allocated`` over what was
+       allocated before the inputs.  Prints the dry run's ``t_comp``
+       and ``t_mem`` on one H100 beside the step's device ms
+       (torch.profiler)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer
+    from repro_torch.perfmodel import flops as F
+    from repro_torch.perfmodel.roofline import HBM_BW, PEAK_FLOPS
+    from repro_torch.train import optimizer as opt
+
+    t_phase = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    gib = 2 ** 30
+
+    # 1. the CLI on the fake 16 x 16 mesh
+    cli = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           "olmo-1b", "--shape", "train_4k"]
+    for extra in (["--force"], ["--roofline"]):
+        t0 = time.perf_counter()
+        out = subprocess.run(cli + extra, capture_output=True, text=True,
+                             timeout=600, env=env, cwd=ROOT)
+        wall = time.perf_counter() - t0
+        if out.returncode:
+            raise AssertionError(f"dryrun {' '.join(extra)}: exit "
+                                 f"{out.returncode}\n{out.stderr[-3000:]}")
+        lines = [ln for ln in out.stdout.splitlines()
+                 if ln.startswith(("[OK ]", "[FAIL]", "[ROOF"))]
+        print(f"dryrun: python -m repro_torch.launch.dryrun --arch olmo-1b "
+              f"--shape train_4k {' '.join(extra)}: {wall:.1f} s host wall; "
+              + " | ".join(lines), flush=True)
+    rec = json.loads((D.RESULTS_DIR / "olmo-1b__train_4k__pod16x16.json")
+                     .read_text())
+    roof = json.loads((D.RESULTS_DIR.parent / "roofline" /
+                       "olmo-1b__train_4k__16x16.json").read_text())
+    if not (rec.get("ok") and roof.get("ok")) or \
+            not any(ln.startswith("[ROOF]") for ln in lines):
+        raise AssertionError(f"dryrun: record ok {rec.get('ok')} "
+                             f"({rec.get('error')}), roofline ok "
+                             f"{roof.get('ok')} ({roof.get('error')})")
+    colls = ", ".join(f"{k} {v / gib:.3f} GiB" for k, v in
+                      rec["collective_bytes"].items())
+    print(f"dryrun: olmo-1b train_4k on the fake 16 x 16 mesh, full depth "
+          f"(a host run of the device-free tool; wall {rec['wall_s']} s, "
+          f"build {rec['lower_s']} s, walk {rec['compile_s']} s): "
+          f"flops_per_device {rec['flops_per_device']:.4e}, hbm_bytes_est "
+          f"{rec['hbm_bytes_est']:.4e}, collectives: {colls}; arguments "
+          f"{rec['argument_size_in_bytes'] / gib:.2f} GiB, temp "
+          f"{rec['temp_size_in_bytes'] / gib:.2f} GiB a device "
+          f"(the H100 holds 80 GB); roofline on 256 H100s (data-sheet "
+          f"rates): compute {roof['compute_s']:.4f} s, memory "
+          f"{roof['memory_s']:.4f} s, collective {roof['collective_s']:.4f}"
+          f" s -> {roof['bottleneck']}", flush=True)
+
+    # 2. the dry run against the card, one rank
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    try:
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"),
+             "--dryrun-one-rank", str(tmp / "one_rank.json")],
+            capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+        if out.returncode:
+            raise AssertionError(f"one-rank dry run: exit {out.returncode}"
+                                 f"\n{out.stderr[-3000:]}")
+        fake = json.loads((tmp / "one_rank.json").read_text())
+        t_fake = time.perf_counter() - t0
+
+        cfg, shape = _dryrun_cell()
+        torch.cuda.empty_cache()
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", store=dist.FileStore(
+            str(tmp / "store"), 1), rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh(1)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            params = transformer.init(0, cfg, device=dev)
+            params = shd.distribute(params, shd.to_shardings(
+                shd.param_specs(params, mesh), mesh))
+            ostate = opt.init(params)
+            batch = {k: shd.place(v.to(torch.int32), shd.NamedSharding(
+                mesh, shd.batch_spec(k, v.shape, mesh)))
+                for k, v in _lm_batch(cfg, shape.global_batch,
+                                      shape.seq_len, 0, dev).items()}
+            args = (params, ostate, batch)
+            step = make_train_step(cfg, opt.OptConfig())
+            arg_bytes = D.nbytes(args)
+
+            real_flops = F.count_fn_flops(step, *args)
+            by_op = {}
+            if real_flops != fake["flops_per_device"]:
+                class Tally(F._FlopCounter):
+                    """The FLOPs of each op, by name."""
+
+                    def charge(self, func, a, o):
+                        f = F._op_flops(func, a, o)
+                        key = func.overloadpacket.__name__
+                        by_op[key] = by_op.get(key, 0) + f
+
+                with Tally():
+                    step(*args)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step(*args)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - before
+            dev_ms = _device_ms(lambda: step(*args), reps=2)
+            del params, ostate, batch, args
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    rel = abs(real_flops - fake["flops_per_device"]) / real_flops
+    differ = {k: (fake["flops_by_op"].get(k, 0), by_op.get(k, 0))
+              for k in set(by_op) | set(fake["flops_by_op"]) if by_op
+              and fake["flops_by_op"].get(k, 0) != by_op.get(k, 0)}
+    predicted = fake["argument_size_in_bytes"] + fake["temp_size_in_bytes"]
+    t_comp = fake["flops_per_device"] / PEAK_FLOPS * 1e3
+    t_mem = fake["hbm_bytes_est"] / HBM_BW * 1e3
+    print(f"dryrun: olmo-1b full width ({cfg.n_layers} layers, {cfg.dtype}, "
+          f"W4 QAT, remat {cfg.remat}), batch {shape.global_batch} x "
+          f"{shape.seq_len}, one rank: dry run ({t_fake:.1f} s host, a "
+          f"one-rank fake group) against the sharded step on the card "
+          f"[{card}]: flops {fake['flops_per_device']:.6e} vs "
+          f"{real_flops:.6e} (relative {rel:.2e}; ops that differ: "
+          f"{differ or 'none'}); argument bytes "
+          f"{fake['argument_size_in_bytes']} vs {arg_bytes}; predicted "
+          f"peak {predicted / gib:.3f} GiB (arguments "
+          f"{fake['argument_size_in_bytes'] / gib:.3f} + temp "
+          f"{fake['temp_size_in_bytes'] / gib:.3f}) vs "
+          f"max_memory_allocated {peak / gib:.3f} GiB over the "
+          f"{before / gib:.3f} GiB held before ({(predicted - peak) / peak:+.1%}"
+          f"); t_comp {t_comp:.2f} ms and t_mem {t_mem:.2f} ms on one H100's "
+          f"data-sheet rates vs the step's device time {dev_ms:.2f} ms "
+          f"(torch.profiler)", flush=True)
+    if rel > 1e-3:
+        raise AssertionError(f"dry-run flops {fake['flops_per_device']} vs "
+                             f"the card's {real_flops}: {differ}")
+    if fake["argument_size_in_bytes"] != arg_bytes:
+        raise AssertionError("dry-run argument bytes differ from the card's")
+    if abs(predicted - peak) > 0.25 * peak:
+        raise AssertionError(f"predicted peak {predicted} vs "
+                             f"max_memory_allocated {peak}: over 25%")
+    print(f"dryrun phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -3757,6 +3984,7 @@ def main() -> int:
     runs.update(obs_phase(dev, smi))
     # after every other phase, so that their numbers do not move
     runs.update(distributed_phase(dev, smi))
+    dryrun_phase(dev, smi)
     print("kernel record: ms, plain_ms, library_ms and bound_ms are device "
           "time per call (torch.profiler), summed over the distinct "
           "geometries the main paths launch the kernel at (one call each; "
@@ -3833,4 +4061,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dryrun-one-rank"]:
+        sys.exit(dryrun_one_rank(sys.argv[2]))
     sys.exit(main())

@@ -199,6 +199,15 @@ def cache_specs(cache_shape, mesh, dp_axes=("data",)):
             for k, v in cache_shape.items()}
 
 
+def logits_spec(cfg, batch_size: int, mesh) -> P:
+    """Serving logits ``(B, vocab)``: the batch over ``data`` and the
+    vocab over ``model``, each where it divides (JAX's dry run gives
+    its prefill and decode steps this out sharding)."""
+    sizes = axis_sizes(mesh)
+    return P("data" if batch_size % sizes["data"] == 0 else None,
+             "model" if cfg.vocab % sizes["model"] == 0 else None)
+
+
 def opt_state_specs(pspecs, mesh):
     return {"m": pspecs, "v": _map_specs(lambda s: s, pspecs), "step": P()}
 

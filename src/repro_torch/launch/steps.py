@@ -14,14 +14,20 @@ where AdamW updates the shards.  Each rank's loss is weighted by its
 share of the global label count, so the summed loss and gradient are
 those of the global batch.  The ``model`` axis holds shards but does
 not split the compute: the forward runs on whole params.
+
+The prefill and decode steps take DTensor params too, in the same
+design (:func:`_sharded_prefill`, :func:`_sharded_decode`): JAX's dry
+run pjits all three kinds of step.
 """
 
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch.mesh import dp_axes
 from repro_torch.models.api import get_model
 from repro_torch.train import optimizer as opt
 from repro_torch.tree import leaves, map_tree, unflatten_like
@@ -104,18 +110,155 @@ def _sharded_value_and_grad(mb, params, batch):
 
 
 def make_prefill_step(cfg: ArchConfig):
+    """(params, batch) -> (last-token logits, cache).  On DTensor params
+    see :func:`_sharded_prefill`."""
     mb = get_model(cfg)
 
     def prefill_step(params, batch):
+        if isinstance(leaves(params)[0], DTensor):
+            return _sharded_prefill(mb, cfg, params, batch)
         return mb.prefill(params, batch)
 
     return prefill_step
 
 
 def make_decode_step(cfg: ArchConfig):
+    """(params, cache, tokens, kv_len=None) -> (logits, cache), the cache
+    written in place; ``kv_len`` as in ``transformer.decode_step``.  On
+    DTensor params see :func:`_sharded_decode`."""
     mb = get_model(cfg)
 
-    def decode_step(params, cache, tokens):
-        return mb.decode_step(params, cache, tokens)
+    def decode_step(params, cache, tokens, kv_len=None):
+        if isinstance(leaves(params)[0], DTensor):
+            return _sharded_decode(mb, cfg, params, cache, tokens, kv_len)
+        return mb.decode_step(params, cache, tokens, kv_len=kv_len)
 
     return decode_step
+
+
+# --- the serve steps on a mesh -----------------------------------------------
+# The train step's FSDP design: every param is all-gathered, the model
+# runs whole on the rank's batch rows (the batch's or the tokens' dim-0
+# placements), and the outputs are placed as JAX's dry run's out
+# shardings say: logits by ``sharding.logits_spec``, the cache by
+# ``sharding.cache_specs``.  The ``model`` axis splits the cache, not the
+# compute: where a cache spec shards heads or sequence, a decode step
+# gathers those dims for its rows, one layer at a time (:class:`_LayerRows`).
+
+
+def _rows_at(rows, dim: int) -> tuple:
+    """Placements of the rank's batch rows with the batch at ``dim``:
+    ``Shard(dim)`` on each mesh dim that ``rows`` (the batch's
+    placements, batch at dim 0) splits dim 0 over, else ``Replicate()``."""
+    return tuple(Shard(dim) if p.is_shard(0) else Replicate() for p in rows)
+
+
+def _whole(params):
+    flat = leaves(params)
+    return flat[0].device_mesh, unflatten_like(
+        params, [p.full_tensor() for p in flat])
+
+
+def _place_serve_out(cfg, mesh, rows, logits, cache):
+    """The rank's rows of logits and cache -> DTensors placed by
+    ``logits_spec`` and ``cache_specs``.  ``cache`` maps names to local
+    tensors (the batch at dim 1; ``len`` at dim 0, or 0-d) or to
+    DTensors already placed, which are kept."""
+    def place(t, placements, spec_of):
+        d = DTensor.from_local(t, mesh, placements, run_check=False)
+        return d.redistribute(mesh, shd.NamedSharding(
+            mesh, spec_of(tuple(d.shape))).placements)
+
+    out_logits = place(logits, _rows_at(rows, 0),
+                       lambda shape: shd.logits_spec(cfg, shape[0], mesh))
+    out = {}
+    for key, t in cache.items():
+        if isinstance(t, DTensor):
+            out[key] = t
+            continue
+        at = (tuple(Replicate() for _ in rows) if t.ndim == 0 else
+              _rows_at(rows, 0 if key == "len" else 1))
+        out[key] = place(t, at, lambda shape, key=key: shd.cache_entry_spec(
+            key, shape, mesh, dp_axes(mesh)))
+    return out_logits, out
+
+
+def _sharded_prefill(mb, cfg, params, batch):
+    """Prefill on DTensor params and batch (placed by
+    ``sharding.distribute``): gathered params, the rank's batch rows,
+    logits and cache placed as :func:`_place_serve_out` says."""
+    mesh, full = _whole(params)
+    rows = next(iter(batch.values())).placements
+    logits, cache = mb.prefill(full, {k: v.to_local()
+                                      for k, v in batch.items()})
+    return _place_serve_out(cfg, mesh, rows, logits, cache)
+
+
+def _sharded_decode(mb, cfg, params, cache, tokens, kv_len):
+    """One decode step on DTensor params, cache and tokens: gathered
+    params, the tokens' rows, each stacked cache entry seen through
+    :class:`_LayerRows` (written back into the placed entries, which the
+    step returns), ``len`` and logits placed by ``cache_specs`` and
+    ``logits_spec``."""
+    mesh, full = _whole(params)
+    rows = tokens.placements
+    local, stacks = {}, []
+    for key, t in cache.items():
+        if key == "len":
+            local[key] = (t.to_local() if t.ndim == 0 else
+                          t.redistribute(mesh, _rows_at(rows, 0)).to_local())
+        else:
+            local[key] = _LayerRows(t, mesh, _rows_at(rows, 1))
+            stacks.append(local[key])
+    logits, new = mb.decode_step(full, local, tokens.to_local(),
+                                 kv_len=kv_len)
+    for s in stacks:
+        s.flush()
+    return _place_serve_out(cfg, mesh, rows, logits,
+                            {**cache, "len": new["len"]})
+
+
+def _drop_dim0(p):
+    return Shard(p.dim - 1) if p.is_shard() else p
+
+
+class _LayerRows:
+    """A stacked cache entry ``(L, B, ...)`` placed on a mesh, as a
+    decode step sees it: the rank's batch rows, every other dim whole.
+    Indexing layer ``i`` gathers it (``redistribute`` to ``rows``);
+    indexing the next layer, or :meth:`flush`, splits the layer back into
+    the placed entry, so one layer at a time is held whole.  Assigning a
+    layer (an SSM's new state) replaces the gathered one."""
+
+    def __init__(self, placed, mesh, rows):
+        self.placed, self.mesh = placed, mesh
+        self.held = tuple(_drop_dim0(p) for p in placed.placements)
+        self.rows = tuple(_drop_dim0(p) for p in rows)
+        shape = list(placed.shape)
+        for p, n in zip(rows, mesh.shape):
+            if p.is_shard():
+                shape[1] //= n
+        self.shape = torch.Size(shape)
+        self._open = None
+
+    def __getitem__(self, i):
+        self.flush()
+        layer = DTensor.from_local(self.placed.to_local()[i], self.mesh,
+                                   self.held, run_check=False)
+        self._open = (i, layer.redistribute(self.mesh, self.rows).to_local())
+        return self._open[1]
+
+    def __setitem__(self, i, value):
+        if self._open is None or self._open[0] != i:
+            self.flush()
+        self._open = (i, value)
+
+    def flush(self):
+        if self._open is None:
+            return
+        i, whole = self._open
+        self._open = None
+        part = DTensor.from_local(whole, self.mesh, self.rows,
+                                  run_check=False).redistribute(
+            self.mesh, self.held).to_local()
+        self.placed.to_local()[i].copy_(part)

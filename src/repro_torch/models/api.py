@@ -34,8 +34,8 @@ def get_model(cfg: ArchConfig) -> ModelBundle:
                                                           batch),
             prefill=lambda params, batch: whisper.prefill(
                 params, cfg, batch["tokens"], batch["frames"]),
-            decode_step=lambda params, cache, tokens: whisper.decode_step(
-                params, cfg, cache, tokens),
+            decode_step=lambda params, cache, tokens, **kw:
+                whisper.decode_step(params, cfg, cache, tokens, **kw),
         )
     return ModelBundle(
         init=lambda seed, device="cuda": transformer.init(seed, cfg,

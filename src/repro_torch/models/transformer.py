@@ -325,9 +325,10 @@ def _block_full(lp, cfg: ArchConfig, x, window: int, emit=None):
     return _residual_tail(lp, cfg, x, _mix(lp, parts, x.dtype))
 
 
-#: what ``remat="dots"`` keeps for the backward pass: the matmul outputs
-_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
-         torch.ops.aten.addmm.default]
+#: what ``remat="dots"`` keeps for the backward pass: the outputs of
+#: matmuls without batch dims (JAX's ``dots_with_no_batch_dims_saveable``:
+#: the linears); batched ones (attention's ``bmm``) are recomputed
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
 
 
 def forward_hidden(params, cfg: ArchConfig, tokens, vision_embeds=None):
@@ -456,9 +457,17 @@ def prefill(params, cfg: ArchConfig, tokens, vision_embeds=None):
     return logits, cache
 
 
-def decode_step(params, cfg: ArchConfig, cache, tokens, *, ragged=False):
+def decode_step(params, cfg: ArchConfig, cache, tokens, *, ragged=False,
+                kv_len: Optional[int] = None):
     """One decode step.  tokens: (B, 1).  Returns (logits (B, vocab) f32,
     cache), the cache updated in place.
+
+    ``kv_len``, when given, is the longest slot's length after this step,
+    known on the host (at most the cache's length; the dry run passes
+    the whole cache's): the step then reads no length off the device.
+    Without it the step reads ``max(len) + 1``.  Either way the attention
+    reads the first ``kv_len`` positions and masks each slot past its
+    own length, so the results are the same.
 
     ragged=True takes per-slot cache lengths (continuous batching); the
     uniform path writes one position for the whole batch.  A live slot
@@ -476,7 +485,7 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, *, ragged=False):
     longest = None
     if attn:
         s_len = cache["k"].shape[2]
-        longest = int(new_len.max())
+        longest = int(new_len.max()) if kv_len is None else kv_len
         if not ragged and longest > s_len:
             raise ValueError(f"decode_step: the cache holds {s_len} "
                              f"positions and is full; pad the prefill "

@@ -20,7 +20,10 @@ cache in place.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import generator, resolve_device
@@ -176,10 +179,16 @@ def _embed(params, cfg: ArchConfig, tokens, offset=0):
 
 
 def decode_train(params, cfg: ArchConfig, tokens, enc_out):
-    """Teacher-forced decoder forward -> hidden (B, S, d)."""
+    """Teacher-forced decoder forward -> hidden (B, S, d).  With
+    ``cfg.remat`` other than ``"none"`` each layer is recomputed whole in
+    the backward pass (JAX's ``jax.checkpoint`` without a policy)."""
     x = _embed(params, cfg, tokens)
     for lp in params["dec_layers"]:
-        x, _ = _dec_block(x, lp, cfg, enc_out)
+        if cfg.remat == "none":
+            x, _ = _dec_block(x, lp, cfg, enc_out)
+        else:
+            x, _ = checkpoint(_dec_block, x, lp, cfg, enc_out,
+                              use_reentrant=False)
     return L.apply_norm("layernorm", params["dec_norm"], x)
 
 
@@ -231,13 +240,16 @@ def prefill(params, cfg: ArchConfig, tokens, frames):
     return logits, cache
 
 
-def decode_step(params, cfg: ArchConfig, cache, tokens):
+def decode_step(params, cfg: ArchConfig, cache, tokens, *,
+                kv_len: Optional[int] = None):
     """One decode step for the whole batch.  tokens: (B, 1).  Returns
     (logits (B, vocab) f32, cache), the self-attention cache written in
     place at position ``len``; raises when the cache is full (JAX would
-    clamp the write onto the last position)."""
+    clamp the write onto the last position).  ``kv_len``, the length
+    after this step known on the host, replaces the read of ``len`` in
+    that check (as in ``transformer.decode_step``)."""
     s_len = cache["k"].shape[2]
-    if int(cache["len"]) >= s_len:
+    if (int(cache["len"]) + 1 if kv_len is None else kv_len) > s_len:
         raise ValueError(f"decode_step: the cache holds {s_len} positions "
                          f"and is full; pad the prefill cache")
     x = _embed(params, cfg, tokens, offset=cache["len"])

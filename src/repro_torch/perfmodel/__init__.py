@@ -13,10 +13,9 @@ Port of ``repro.perfmodel``:
 ``fpga_model``  the L-SPINE Tables I/II resource / latency / energy
                 model, pure Python.
 
-``repro``'s cell-level roofline (``exact_flops``, ``depth_differential``,
-``roofline_cell``) compiles through its TPU-mesh tooling
-(``launch/dryrun.py``, ``launch/specs.py``), which the port does not
-have yet.
+``roofline`` also holds each dry-run cell's roofline (``exact_flops``,
+``depth_differential``, ``roofline_cell``), whose memory and collective
+terms come from ``launch/dryrun.py``'s walk on a fake 256/512-rank mesh.
 """
 
 from repro_torch.perfmodel.roofline import (  # noqa: F401
@@ -25,6 +24,9 @@ from repro_torch.perfmodel.roofline import (  # noqa: F401
     PEAK_FLOPS,
     PEAK_FP32_FLOPS,
     PEAK_INT8_OPS,
+    depth_differential,
+    exact_flops,
     override_depth,
     pick_bottleneck,
+    roofline_cell,
 )

@@ -156,8 +156,77 @@ def case_cp(rank, world, inp):
     return {"loss": loss.item(), "seen": seen}
 
 
+def case_serve(rank, world, inp):
+    """The sharded prefill and decode steps on a (4, 2) mesh against the
+    unsharded ones from the same params (made from seed 0 on every rank):
+    the largest |difference| over the largest |value| of each output, and
+    each output's placements beside the ones its spec gives."""
+    import torch.nn.functional as F
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.api import get_model
+    from repro_torch.tree import map_tree
+
+    mesh = make_host_mesh(2)
+    out = {}
+    for name, cfg in inp["cfgs"].items():
+        params = get_model(cfg).init(0, device="cpu")
+        placed = shd.distribute(params, shd.to_shardings(
+            shd.param_specs(params, mesh), mesh))
+        batch = {k: torch.from_numpy(v) for k, v in inp["batch"][name].items()}
+
+        def put(tree, spec_of):
+            return {k: shd.place(v, shd.NamedSharding(mesh, spec_of(k, v)))
+                    for k, v in tree.items()}
+
+        def check(got, want):
+            """(max |got - want| / max |want|, placements, spec's)."""
+            full = got.full_tensor()
+            err = float(torch.max(torch.abs(full.double() - want.double()))
+                        / torch.clamp_min(torch.max(torch.abs(
+                            want.double())), 1e-30)) if want.numel() else 0.0
+            return err, tuple(got.placements)
+
+        def checks(logits, cache, want_logits, want_cache):
+            res = {"logits": check(logits, want_logits) + (
+                shd.NamedSharding(mesh, shd.logits_spec(
+                    cfg, want_logits.shape[0], mesh)).placements,)}
+            for k, v in want_cache.items():
+                res[k] = check(cache[k], v) + (shd.NamedSharding(
+                    mesh, shd.cache_entry_spec(k, v.shape, mesh)).placements,)
+            return res
+
+        prefill = make_prefill_step(cfg)
+        with torch.no_grad():
+            ref_logits, ref_cache = prefill(params, batch)
+            logits, cache = prefill(placed, put(
+                batch, lambda k, v: shd.batch_spec(k, v.shape, mesh)))
+        res = {"prefill": checks(logits, cache, ref_logits, ref_cache)}
+
+        # decode 2 steps from the prefill cache padded by 2 positions
+        pad = {k: (F.pad(v, (0, 0) * (v.ndim - 3) + (0, 2))
+                   if k in ("k", "v") else v) for k, v in ref_cache.items()}
+        ref = map_tree(lambda t: t.clone(), pad)
+        mine = put(map_tree(lambda t: t.clone(), pad),
+                   lambda k, v: shd.cache_entry_spec(k, v.shape, mesh))
+        decode = make_decode_step(cfg)
+        for t, toks in enumerate(inp["steps"][name]):
+            toks = torch.from_numpy(toks)
+            with torch.no_grad():
+                ref_logits, ref = decode(params, ref, toks)
+                logits, mine = decode(placed, mine, shd.place(
+                    toks, shd.NamedSharding(mesh, shd.batch_spec(
+                        "tokens", toks.shape, mesh))),
+                    kv_len=pad["k"].shape[2])
+            res[f"decode{t}"] = checks(logits, mine, ref_logits, ref)
+        out[name] = res
+    return out
+
+
 CASES = {"cp": case_cp, "ef": case_ef, "pipe": case_pipe, "step": case_step,
-         "restore": case_restore}
+         "restore": case_restore, "serve": case_serve}
 
 
 def main(case, rank, world, d):

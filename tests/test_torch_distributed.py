@@ -57,6 +57,7 @@ from repro_torch import configs, convert
 from repro_torch.configs.base import ArchConfig
 from repro_torch.launch import steps
 from repro_torch.models import transformer as T
+from repro_torch.models.api import get_model
 from repro_torch.train import optimizer as opt
 from repro_torch.tree import leaves, unflatten_like
 
@@ -395,3 +396,82 @@ def test_attention_cp_hint_across_eight_ranks(tmp_path):
         np.testing.assert_allclose(o["loss"], want, rtol=1e-5)
         assert o["seen"] == [(4, 4, 16, K, G, cfg.head_dim),
                              (2, 1, 16, K, G, cfg.head_dim)] * cfg.n_layers
+
+
+# --- the sharded serve steps -------------------------------------------------
+
+
+def test_sharded_serve_steps_on_a_four_by_two_mesh(tmp_path):
+    """``make_prefill_step`` / ``make_decode_step`` on params, batch, cache
+    and tokens placed on a (4, 2) mesh (olmo, hymba with its SSM state,
+    whisper with its 0-d length; B=8, heads split over ``model``) against
+    the unsharded steps from the same params: a prefill, then 2 decode
+    steps given the whole cache's length from the host (the unsharded
+    ones read it).  Logits and every cache entry within 1e-5 of the
+    output's largest |value| (the rank computes its rows with its own
+    matmul shapes), placed as ``logits_spec`` and ``cache_specs`` say."""
+    g = np.random.default_rng(4)
+    cfgs, batch, steps_ = {}, {}, {}
+    for arch in ("olmo-1b", "hymba-1.5b", "whisper-base"):
+        cfg = configs.get_config(arch, smoke=True)
+        cfgs[arch] = cfg
+        b = {"tokens": g.integers(0, cfg.vocab, (8, 32)).astype(np.int64)}
+        if cfg.family == "audio":
+            b["frames"] = g.standard_normal((8, 48, cfg.d_model)).astype(
+                np.float32)
+        batch[arch] = b
+        steps_[arch] = [g.integers(0, cfg.vocab, (8, 1)).astype(np.int64)
+                        for _ in range(2)]
+    got = run_ranks("serve", 8, tmp_path, {"cfgs": cfgs, "batch": batch,
+                                           "steps": steps_}, timeout=180)
+    for o in got:
+        assert set(o) == set(cfgs)
+        for arch, res in o.items():
+            assert set(res) == {"prefill", "decode0", "decode1"}
+            for step, entries in res.items():
+                assert "logits" in entries and "len" in entries
+                for key, (err, placed, want) in entries.items():
+                    assert err <= 1e-5, (arch, step, key, err)
+                    assert placed == tuple(want), (arch, step, key, placed)
+    # the heads of olmo's K/V cache are split over model
+    assert "Shard(dim=3)" in repr(got[0]["olmo-1b"]["decode1"]["k"][1])
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "whisper-base"])
+def test_decode_given_the_length_equals_one_that_reads_it(arch):
+    """``decode_step(kv_len=)``: the longest length after the step, given
+    from the host, in place of the read of ``max(len) + 1`` (the dry run
+    gives it on fake tensors, which cannot be read).  The same value the
+    step reads gives bit-equal logits and cache; the whole cache's
+    length (what the dry run gives) within rtol 1e-5 (the attention's
+    sums run over the masked tail too, and a later layer's K/V follows
+    the earlier layer's output).  A length past the cache raises."""
+    cfg = configs.get_config(arch, smoke=True)
+    step = steps.make_decode_step(cfg)
+    prefill = steps.make_prefill_step(cfg)
+    params = get_model(cfg).init(0, device="cpu")
+    g = np.random.default_rng(5)
+    b = {"tokens": torch.from_numpy(g.integers(0, cfg.vocab, (3, 12)))}
+    if cfg.family == "audio":
+        b["frames"] = torch.from_numpy(
+            g.standard_normal((3, 20, cfg.d_model)).astype(np.float32))
+    with torch.no_grad():
+        _, cache = prefill(params, b)
+    cache = {k: (torch.nn.functional.pad(v, (0, 0, 0, 0, 0, 4))
+                 if k in ("k", "v") else v) for k, v in cache.items()}
+    toks = torch.from_numpy(g.integers(0, cfg.vocab, (3, 1)))
+    outs = []
+    for kv_len in (None, 13, 16):
+        c = {k: v.clone() for k, v in cache.items()}
+        with torch.no_grad():
+            logits, c = step(params, c, toks, kv_len=kv_len)
+        outs.append((logits, c))
+    (l0, c0), (l1, c1), (l2, c2) = outs
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(c0[k], c1[k]) for k in c0)
+    torch.testing.assert_close(l2, l0, rtol=1e-5, atol=1e-6)
+    for k in c0:
+        torch.testing.assert_close(c2[k], c0[k], rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError):
+        step(params, {k: v.clone() for k, v in cache.items()}, toks,
+             kv_len=17)
