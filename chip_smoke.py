@@ -181,10 +181,14 @@
 8. The distributed layer as one NCCL rank (``distributed_phase``, last,
    so that no earlier number moves): a one-rank NCCL group from a
    ``FileStore`` and a (1, 1) ``("data", "model")`` mesh; olmo-1b at full
-   width (bf16, W4 QAT, batch 8 x 128) for 3 ``make_train_step`` steps
-   on params placed by ``to_shardings``, losses and params within rtol
-   1e-5 of 3 unsharded steps from the same params (ms a step, peak
-   memory); ``tree_ef_allreduce_mean`` over NCCL on one step's gradient
+   width (bf16, W4 QAT, batch 8 x 128) for 3 ``make_train_step(
+   tensor_parallel=True)`` steps on params placed by ``to_shardings``
+   (the tensor-parallel route, its collectives on a one-rank ``model``
+   group), losses within rtol 1e-5 of 3 unsharded steps from the same
+   params and params within 1e-2 of the leaf's largest (ms a step, peak
+   memory), and one ``grad_accum=2`` step on the mesh against the
+   unsharded ``grad_accum=2`` step under the same gates;
+   ``tree_ef_allreduce_mean`` over NCCL on one step's gradient
    tree, bit-exact against ``tree_ef_plain`` (two rounds, ms); the placed
    params saved from the mesh and ``restore(shardings=)``d, bit-equal;
    vgg9 INT4 ``fusion=()`` / ``"auto"`` and resnet18 ``"auto"`` through
@@ -192,6 +196,13 @@
    counts equal to ``data_parallel=False``, images/s of both.  More
    than one rank on a mesh axis needs more cards: the CPU tests run
    those over gloo.
+
+9. The dry run (``dryrun_phase``, after 8.): ``python -m
+   repro_torch.launch.dryrun`` of olmo-1b ``train_4k`` on a fake 16 x 16
+   mesh at full depth (tensor-parallel: arguments + temp under 80 GB a
+   device, ``flops_per_device`` beside a 256th of the cell's FLOPs) and
+   its roofline, then the card cell dry-run on one fake rank against the
+   real step on the card (FLOPs equal, peak within 25%).
 
 Exits non-zero on any failure and without a card.  The line before the
 last is the kernels' JSON record; the last line is
@@ -3326,14 +3337,17 @@ def distributed_phase(dev, card):
     1. a one-rank NCCL group from a ``FileStore`` in a temp dir and a
        (1, 1) ``("data", "model")`` mesh on the card (``make_host_mesh``);
     2. olmo-1b at full width (16 layers, bf16, W4 QAT), batch 8 x 128:
-       3 steps of ``make_train_step`` on params and moments placed by
-       ``to_shardings`` and a batch placed by ``batch_spec``, against 3
-       unsharded steps from the same initial params: losses within rtol
-       1e-5; the params' share of bit-equal elements and largest
-       difference printed beside a second unsharded run's (the
-       embedding's backward accumulates atomically, so no two runs are
-       bit-equal), the largest asserted under 1e-2 of the leaf's largest
-       |value|; ms a step and peak memory of each;
+       3 steps of ``make_train_step(tensor_parallel=True)`` on params and
+       moments placed by ``to_shardings`` and a batch placed by
+       ``batch_spec`` (the tensor-parallel route: its context made once
+       a step, asserted), against 3 unsharded steps from the same
+       initial params: losses within rtol 1e-5; the params' share of
+       bit-equal elements and largest difference printed beside a second
+       unsharded run's (the embedding's backward accumulates atomically,
+       so no two runs are bit-equal), the largest asserted under 1e-2 of
+       the leaf's largest |value|; ms a step and peak memory of each;
+       then one ``grad_accum=2`` step of each from fresh params, under
+       the same gates;
     3. ``tree_ef_allreduce_mean`` over NCCL on one step's gradient tree,
        twice (the second round re-injects the first's error), bit-exact
        against ``tree_ef_plain`` (the same arithmetic, no collectives),
@@ -3360,6 +3374,7 @@ def distributed_phase(dev, card):
     from repro_torch.distributed import compression as C
     from repro_torch.distributed import sharding as shd
     from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.launch import steps as St
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import snn_cnn, transformer
@@ -3372,6 +3387,7 @@ def distributed_phase(dev, card):
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dist_"))
+    tp_for_step = St.tp_for_step    # wrapped below to count TP contexts
     torch.cuda.set_device(dev)
     dist.init_process_group("nccl", store=dist.FileStore(
         str(tmp / "store"), 1), rank=0, world_size=1)
@@ -3385,19 +3401,26 @@ def distributed_phase(dev, card):
                                   precision=PrecisionConfig(bits=4,
                                                             group_size=-1))
         ocfg = TrainConfig().opt
-        step = make_train_step(cfg, ocfg)
+        contexts = []
+
+        def counted_for_step(c, m):
+            contexts.append(tp_for_step(c, m))
+            return contexts[-1]
+
+        St.tp_for_step = counted_for_step
         batches = [_lm_batch(cfg, 8, 128, i, dev) for i in range(3)]
         ref = transformer.init(0, cfg, device=dev)
         sharded = shd.distribute(
             map_tree(lambda t: t.clone(), ref),
             shd.to_shardings(shd.param_specs(ref, mesh), mesh))
 
-        def run(params, placed):
+        def run(params, placed, accum=1, feed=batches):
+            step = make_train_step(cfg, ocfg, accum, tensor_parallel=True)
             state = opt.init(params)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             losses, times = [], []
-            for b in batches:
+            for b in feed:
                 if placed:
                     b = {k: shd.place(v, shd.NamedSharding(
                         mesh, shd.batch_spec(k, v.shape, mesh)))
@@ -3410,16 +3433,21 @@ def distributed_phase(dev, card):
                     torch.cuda.max_memory_allocated() / 2 ** 30)
 
         ref, ref_l, ref_t, ref_mem = run(ref, False)
+        if contexts:
+            raise AssertionError("the unsharded step made a TP context")
         sharded, sh_l, sh_t, sh_mem = run(sharded, True)
         if not isinstance(leaves(sharded)[0], DTensor):
             raise AssertionError("the sharded step dropped the placements")
+        if len(contexts) != len(batches) or None in contexts:
+            raise AssertionError(f"the sharded step took the FSDP route: "
+                                 f"{contexts}")
         # the embedding's backward (an index_put with accumulate, atomic
         # on the card) is not bit-reproducible: a second unsharded run
         # from the same params shows the run-to-run floor
         again = transformer.init(0, cfg, device=dev)
         again, again_l, _, _ = run(again, False)
 
-        def agree(params):
+        def agree(params, ref=ref):
             """(share of bit-equal elements, max |diff| over the leaf's
             max |value|) against the first unsharded run."""
             eq = n = 0
@@ -3453,8 +3481,38 @@ def distributed_phase(dev, card):
               f"diff {sh_worst:.3e} of the leaf's largest (second "
               f"unsharded run: {re_eq:.6f}, {re_worst:.3e}); ms a step "
               f"(first step warm) sharded {ms(sh_t)}, unsharded "
-              f"{ms(ref_t)}; peak {sh_mem:.2f} / {ref_mem:.2f} GiB",
+              f"{ms(ref_t)}; peak {sh_mem:.2f} / {ref_mem:.2f} GiB; "
+              f"route tensor-parallel ({len(contexts)} contexts: heads "
+              f"{contexts[-1].heads}, kv {contexts[-1].kv}, mlp "
+              f"{contexts[-1].mlp}, vocab {contexts[-1].vocab})",
               flush=True)
+
+        # grad_accum=2 on the mesh against the unsharded grad_accum=2
+        acc_ref = transformer.init(0, cfg, device=dev)
+        acc_sh = shd.distribute(
+            map_tree(lambda t: t.clone(), acc_ref),
+            shd.to_shardings(shd.param_specs(acc_ref, mesh), mesh))
+        acc_ref, acc_ref_l, acc_ref_t, acc_ref_mem = run(
+            acc_ref, False, 2, batches[:1])
+        acc_sh, acc_sh_l, acc_sh_t, acc_sh_mem = run(acc_sh, True, 2,
+                                                     batches[:1])
+        acc_eq, acc_worst = agree(acc_sh, acc_ref)
+        del acc_ref, acc_sh
+        torch.cuda.empty_cache()
+        if not np.allclose(acc_sh_l, acc_ref_l, rtol=1e-5, atol=0) or \
+                acc_worst > 1e-2:
+            raise AssertionError(f"grad_accum=2 on the mesh: loss "
+                                 f"{acc_sh_l} vs unsharded {acc_ref_l}; "
+                                 f"params max diff {acc_worst:.3e}")
+        print(f"distributed: olmo-1b full width, W4 QAT, one grad_accum=2 "
+              f"step (2 microbatches of 4 x 128) on the (1, 1) mesh, "
+              f"tensor-parallel, vs unsharded grad_accum=2 [{card}]: loss "
+              f"{acc_sh_l[0]:.6f} vs {acc_ref_l[0]:.6f}; params bit-equal "
+              f"at {acc_eq:.6f} of elements, max diff {acc_worst:.3e} of "
+              f"the leaf's largest; ms {ms(acc_sh_t)} vs {ms(acc_ref_t)} "
+              f"(a first step, cold); peak {acc_sh_mem:.2f} / "
+              f"{acc_ref_mem:.2f} GiB", flush=True)
+        St.tp_for_step = tp_for_step
 
         # 3. EF-int8 over NCCL on one step's gradients
         flat = leaves(ref)
@@ -3545,6 +3603,7 @@ def distributed_phase(dev, card):
                   f"False, launches {l1} (the same); {r1:.1f} images/s vs "
                   f"{r0:.1f} images/s [{card}]", flush=True)
     finally:
+        St.tp_for_step = tp_for_step
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"distributed phase: {time.perf_counter() - t_phase:.1f} s",
@@ -3611,8 +3670,11 @@ def dryrun_phase(dev, card):
        record reused): subprocesses (a fake process group of 256 ranks
        must not meet this process's NCCL group), full depth, the fake
        16 x 16 mesh, on the host.  Gate: exit 0, ``ok`` records and the
-       ``[ROOF]`` line.  Prints the record's numbers (a host run of a
-       device-free tool: its wall time is the host's).
+       ``[ROOF]`` line, and arguments + temp under 80 GB a device (the
+       step is tensor-parallel over ``model``).  Prints the record's
+       numbers (a host run of a device-free tool: its wall time is the
+       host's) and ``flops_per_device`` over a 256th of the cell's
+       global FLOPs (the roofline's ``hlo_flops_global``).
     2. The card cell (:func:`_dryrun_cell`) dry-run on a one-rank fake
        group (:func:`dryrun_one_rank`, a subprocess), then the real
        sharded step on the card as one NCCL rank on a (1, 1) mesh, the
@@ -3671,17 +3733,24 @@ def dryrun_phase(dev, card):
                              f"{roof.get('ok')} ({roof.get('error')})")
     colls = ", ".join(f"{k} {v / gib:.3f} GiB" for k, v in
                       rec["collective_bytes"].items())
+    held = rec["argument_size_in_bytes"] + rec["temp_size_in_bytes"]
+    split = rec["flops_per_device"] / (roof["hlo_flops_global"] / 256)
     print(f"dryrun: olmo-1b train_4k on the fake 16 x 16 mesh, full depth "
           f"(a host run of the device-free tool; wall {rec['wall_s']} s, "
           f"build {rec['lower_s']} s, walk {rec['compile_s']} s): "
           f"flops_per_device {rec['flops_per_device']:.4e}, hbm_bytes_est "
           f"{rec['hbm_bytes_est']:.4e}, collectives: {colls}; arguments "
           f"{rec['argument_size_in_bytes'] / gib:.2f} GiB, temp "
-          f"{rec['temp_size_in_bytes'] / gib:.2f} GiB a device "
-          f"(the H100 holds 80 GB); roofline on 256 H100s (data-sheet "
+          f"{rec['temp_size_in_bytes'] / gib:.2f} GiB a device, "
+          f"{held / 1e9:.2f} GB in all (the H100 holds 80 GB); "
+          f"flops_per_device / (the cell's {roof['hlo_flops_global']:.4e} "
+          f"/ 256) = {split:.4f}; roofline on 256 H100s (data-sheet "
           f"rates): compute {roof['compute_s']:.4f} s, memory "
           f"{roof['memory_s']:.4f} s, collective {roof['collective_s']:.4f}"
           f" s -> {roof['bottleneck']}", flush=True)
+    if held >= 80e9:
+        raise AssertionError(f"dryrun: olmo-1b train_4k holds "
+                             f"{held / 1e9:.2f} GB a device, over 80 GB")
 
     # 2. the dry run against the card, one rank
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
@@ -3715,7 +3784,8 @@ def dryrun_phase(dev, card):
                 for k, v in _lm_batch(cfg, shape.global_batch,
                                       shape.seq_len, 0, dev).items()}
             args = (params, ostate, batch)
-            step = make_train_step(cfg, opt.OptConfig())
+            step = make_train_step(cfg, opt.OptConfig(),
+                                   tensor_parallel=True)
             arg_bytes = D.nbytes(args)
 
             real_flops = F.count_fn_flops(step, *args)

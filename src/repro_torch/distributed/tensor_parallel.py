@@ -1,0 +1,311 @@
+"""Tensor-parallel compute over a mesh's ``model`` axis, for the sharded
+train step of the dense transformer families.
+
+JAX pjits its train step onto ``sharding.py``'s specs, and XLA's
+partitioner splits the compute where a spec names ``model``.  The port
+has no partitioner, so this module does that work by hand, in
+Megatron's form: :class:`TensorParallel` is the context that
+``launch/steps.py`` hands to ``models/transformer.py`` and
+``models/layers.py`` (``tp=``; ``None`` on the unsharded path).
+
+Routes, by ``cfg.family`` (:func:`for_step`):
+
+* ``"dense"`` (olmo-1b, stablelm-1.6b, gemma2-2b, internlm2-20b) and
+  ``"vlm"`` (paligemma-3b's text decoder and ``vision_proj``) take the
+  tensor-parallel route below;
+* the MoE, SSM, hybrid and audio families (granite-moe, moonshot,
+  mamba2, hymba, whisper) and any mesh without a ``model`` axis take
+  the FSDP route: every param gathered whole, the whole loss on every
+  rank.
+
+On the tensor-parallel route each param is gathered over the batch's
+mesh dims only and keeps the ``model`` split of :meth:`placements`:
+
+* column-parallel linears (``attn/w[qkv]``, ``mlp/w[ig]``, ``lm_head``,
+  ``vision_proj``) hold a slice of the outputs; their input passes
+  :meth:`~TensorParallel.copy_in` (identity forward, all-reduce
+  backward);
+* row-parallel linears (``attn/wo``, ``mlp/wo``) hold a slice of the
+  contraction; their partial products pass
+  :meth:`~TensorParallel.reduce_out` (all-reduce forward, identity
+  backward), and a bias is added once,
+  after it (``layers.linear(tp=)``).  Fake-quant's absmax over the split
+  contraction is the max over ``model`` (:meth:`fake_quant_rows`);
+* attention splits the query heads where ``n_heads`` divides ``model``,
+  and the KV heads with them where ``n_kv`` does; where it does not,
+  ``wk``/``wv`` are gathered whole and each rank takes the KV heads its
+  query heads read (:meth:`attn_shard`).  Where ``n_heads`` does not
+  divide ``model``, the layer's attention runs whole heads on every
+  rank, as the FSDP route does;
+* the embedding is split on the vocab: each rank looks up the tokens of
+  its range and ``reduce_out`` sums the rows (:meth:`embed`); the
+  logits stay split and :meth:`cross_entropy` reduces the max, the sum
+  of exponentials and the target's logit over ``model``.
+
+A part whose dim does not divide ``model`` (``d_ff``, the vocab,
+``d_model`` for ``vision_proj``) runs whole on every rank.  Every
+``model`` rank of a data group sees the same rows, so a gradient is
+summed over the batch's mesh dims only: a split param's gradient is its
+own slice, a param run whole has the same gradient on every ``model``
+rank, and ``wk``/``wv`` gathered for their KV heads have partial sums
+(:meth:`placements`).
+
+The collectives are ``torch.distributed``'s functional ones
+(``_c10d_functional``), which the dry run's walker counts.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Optional
+
+import torch
+from torch.distributed.tensor import Partial, Replicate, Shard
+
+from repro_torch.quant.qat import _ClipRoundSTE, fake_quant
+
+#: the model-axis layout of each split param: (path regex, part, dim)
+_SPLITS = [
+    (r"^embed$", "vocab", 0),
+    (r"^lm_head/w$", "vocab", 1),
+    (r"^vision_proj/w$", "vision", 1),
+    (r"attn/wq/w$", "heads", 1),
+    (r"attn/wq/b$", "heads", 0),
+    (r"attn/w[kv]/w$", "kv", 1),
+    (r"attn/w[kv]/b$", "kv", 0),
+    (r"attn/wo/w$", "heads", 0),
+    (r"mlp/w[ig]/w$", "mlp", 1),
+    (r"mlp/wo/w$", "mlp", 0),
+]
+
+
+def _wait(t: torch.Tensor) -> torch.Tensor:
+    return torch.ops._c10d_functional.wait_tensor(t)
+
+
+def _all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    return _wait(torch.ops._c10d_functional.all_reduce(
+        t.contiguous(), op, group.group_name))
+
+
+class _CopyIn(torch.autograd.Function):
+    """Megatron's f: identity forward, all-reduce backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, "sum", ctx.group), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """Megatron's g: all-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherLast(torch.autograd.Function):
+    """All-gather along the last dim forward; the rank's slice of the
+    gradient backward (every rank holds the same gradient of the
+    gathered tensor)."""
+
+    @staticmethod
+    def forward(ctx, x, group, size, rank):
+        ctx.rank, ctx.n = rank, x.shape[-1]
+        moved = x.movedim(-1, 0).contiguous()
+        whole = _wait(torch.ops._c10d_functional.all_gather_into_tensor(
+            moved, size, group.group_name))
+        return whole.movedim(0, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.rank * ctx.n
+        return g[..., lo:lo + ctx.n], None, None, None
+
+
+class _VocabLogSumExp(torch.autograd.Function):
+    """``logsumexp`` over a vocab split across ``model``, in
+    ``torch.logsumexp``'s arithmetic: ``log(sum(exp(x - max))) + max``,
+    the max and the sum reduced over the group; backward
+    ``g * exp(x - lse)`` on the rank's slice (every rank holds the same
+    ``g``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        m = _all_reduce(torch.amax(x, dim=-1, keepdim=True), "max", group)
+        s = _all_reduce(torch.sum(torch.exp(x - m), dim=-1), "sum", group)
+        lse = torch.log(s) + m[..., 0]
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        return g[..., None] * torch.exp(x - lse[..., None]), None
+
+
+class TensorParallel:
+    """The ``model`` axis of ``mesh`` and how ``cfg``'s dense layers split
+    over it.  Flags: ``heads`` (query heads split), ``kv`` (KV heads
+    split with them), ``mlp`` (``d_ff`` split), ``vocab``, ``vision``
+    (``vision_proj``'s outputs split).  :meth:`on` gives the context for
+    a part that splits, else ``None``."""
+
+    def __init__(self, cfg, mesh):
+        self.group = mesh.get_group("model")
+        self.size = mesh.size(mesh.mesh_dim_names.index("model"))
+        self.rank = mesh.get_local_rank("model")
+        m = self.size
+        self.heads = cfg.n_heads % m == 0
+        self.kv = self.heads and cfg.n_kv % m == 0
+        self.mlp = cfg.d_ff > 0 and cfg.d_ff % m == 0
+        self.vocab = cfg.vocab % m == 0
+        self.vision = bool(cfg.vision_prefix_len) and cfg.d_model % m == 0
+        self.head_dim = cfg.head_dim
+        self.n_heads = cfg.n_heads // m if self.heads else cfg.n_heads
+        self.n_kv, self._kv_cols, self._kv_index = cfg.n_kv, None, None
+        if self.kv:
+            self.n_kv = cfg.n_kv // m
+        elif self.heads:
+            self._plan_kv_gather(cfg)
+
+    def _plan_kv_gather(self, cfg) -> None:
+        """The KV heads this rank's query heads read, from ``wk``/``wv``
+        gathered whole: their column range, and, where the local query
+        heads do not fall into equal groups of consecutive heads, the KV
+        head of each query head."""
+        g = cfg.n_heads // cfg.n_kv
+        first = self.rank * self.n_heads
+        kv_of = [(first + i) // g for i in range(self.n_heads)]
+        lo, hi = kv_of[0], kv_of[-1] + 1
+        self.n_kv = hi - lo
+        self._kv_cols = (lo * self.head_dim, hi * self.head_dim)
+        per = self.n_heads // self.n_kv
+        if self.n_heads % self.n_kv or any(
+                k - lo != i // per for i, k in enumerate(kv_of)):
+            self._kv_index = torch.tensor([k - lo for k in kv_of])
+
+    def on(self, part: str) -> Optional["TensorParallel"]:
+        return self if getattr(self, part) else None
+
+    # --- placements ---------------------------------------------------------
+
+    def placements(self, path) -> tuple:
+        """(forward, gradient) placement on the ``model`` mesh dim of the
+        param at ``path``: ``Shard(d)`` for a split param, ``Replicate()``
+        for one run whole, and for ``wk``/``wv`` gathered for their KV
+        heads ``Replicate()`` and ``Partial()``."""
+        ps = "/".join(str(k) for k in path)
+        for pat, part, dim in _SPLITS:
+            if re.search(pat, ps):
+                if getattr(self, part):
+                    return Shard(dim), Shard(dim)
+                if part == "kv" and self.heads:
+                    return Replicate(), Partial()
+                break
+        return Replicate(), Replicate()
+
+    # --- collectives --------------------------------------------------------
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        return _CopyIn.apply(x, self.group)
+
+    def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
+        return _ReduceOut.apply(x, self.group)
+
+    def gather_last(self, x: torch.Tensor) -> torch.Tensor:
+        return _GatherLast.apply(x, self.group, self.size, self.rank)
+
+    # --- layers -------------------------------------------------------------
+
+    def attn_shard(self, lp):
+        """The attention params this rank computes with: ``lp`` itself
+        where the KV heads split, else ``wk``/``wv`` narrowed to the
+        columns of the KV heads this rank reads."""
+        if self._kv_cols is None:
+            return lp
+        lo, hi = self._kv_cols
+
+        def cols(p):
+            out = {"w": p["w"][:, lo:hi]}
+            if "b" in p:
+                out["b"] = p["b"][lo:hi]
+            return out
+
+        return {**lp, "wk": cols(lp["wk"]), "wv": cols(lp["wv"])}
+
+    def expand_kv(self, t: torch.Tensor) -> torch.Tensor:
+        """``(B, S, n_kv, hd)`` -> one KV head per local query head, where
+        the query heads do not group evenly over the KV heads read."""
+        if self._kv_index is None:
+            return t
+        return t[:, :, self._kv_index.to(t.device)]
+
+    def fake_quant_rows(self, w: torch.Tensor, pc) -> torch.Tensor:
+        """``fake_quant(W.T).T`` of a row-parallel ``W`` (``d_in`` split):
+        the group rule is decided on the whole ``d_in``; a per-channel
+        absmax is the max over ``model``; groups that straddle shards
+        are quantized on the gathered contraction."""
+        wt = w.T
+        n_loc = wt.shape[-1]
+        n = n_loc * self.size
+        gs = n if pc.group_size == -1 else pc.group_size
+        if n % gs:
+            gs = n
+        if gs < n and n_loc % gs == 0:
+            return fake_quant(wt, pc).T
+        if gs < n:
+            lo = self.rank * n_loc
+            return fake_quant(self.gather_last(wt), pc)[..., lo:lo + n_loc].T
+        absmax = _all_reduce(torch.amax(torch.abs(wt), dim=-1, keepdim=True)
+                             .detach(), "max", self.group)
+        scale = torch.clamp_min(absmax / pc.qmax, 1e-8)
+        q = _ClipRoundSTE.apply(wt / scale, pc.qmin, pc.qmax)
+        return (q * scale).T
+
+    def embed(self, table: torch.Tensor, tokens: torch.Tensor
+              ) -> torch.Tensor:
+        """Rows of a vocab-split ``table``: each rank's rows for the
+        tokens in its range, zeros elsewhere, summed over ``model``."""
+        n = table.shape[0]
+        local = tokens - self.rank * n
+        ok = (local >= 0) & (local < n)
+        rows = table[torch.where(ok, local, 0)]
+        rows = torch.where(ok[..., None], rows, torch.zeros_like(rows))
+        return self.reduce_out(rows)
+
+    def cross_entropy(self, logits: torch.Tensor, labels: torch.Tensor):
+        """(summed cross-entropy, count of unmasked labels) of
+        vocab-split float32 ``logits`` ``(B, S, vocab / model)``: the
+        max, the sum of exponentials (:class:`_VocabLogSumExp`) and the
+        target's logit reduced over ``model``.  On a one-rank ``model``
+        axis this is ``_chunk_loss``'s arithmetic, bit for bit."""
+        n = logits.shape[-1]
+        mask = (labels >= 0).to(torch.float32)
+        lse = _VocabLogSumExp.apply(logits, self.group)
+        local = torch.clamp(labels, min=0).to(torch.int64) - self.rank * n
+        ok = (local >= 0) & (local < n)
+        tgt = torch.gather(logits, -1, torch.where(ok, local, 0)[..., None])
+        tgt = self.reduce_out(torch.where(ok, tgt[..., 0],
+                                          torch.zeros_like(lse)))
+        return torch.sum((lse - tgt) * mask), torch.sum(mask)
+
+
+def for_step(cfg, mesh) -> Optional[TensorParallel]:
+    """The train step's context on ``mesh``, or ``None`` for the FSDP
+    route (the families outside ``"dense"``/``"vlm"``, a MoE or hybrid
+    config, a mesh without a ``model`` axis)."""
+    if (cfg.family not in ("dense", "vlm") or cfg.moe is not None
+            or cfg.hybrid_parallel_ssm
+            or "model" not in (mesh.mesh_dim_names or ())):
+        return None
+    return TensorParallel(cfg, mesh)

@@ -15,8 +15,9 @@ runs the cell's step itself, on nothing:
   strides, no storage, so a cell allocates nothing on any device;
 * params, moments, batch and cache are ``launch/specs.py``'s stand-ins
   placed by ``distributed/sharding.py``'s specs (DTensors), and the step
-  is the port's own sharded step (``launch/steps.py``: FSDP on DTensor,
-  for train, prefill and decode);
+  is the port's own sharded step (``launch/steps.py``: for train,
+  tensor-parallel over ``model`` for the dense and VLM families and FSDP
+  for the others; FSDP for prefill and decode);
 * :class:`CellWalker`, a dispatch mode, meets every op rank 0 runs, at
   the rank's local shapes (``perfmodel.flops.LocalOpMode``: a DTensor
   op is handed on to DTensor, whose local ops and collectives come
@@ -60,9 +61,11 @@ a trip, and the walk sees every op as often as it runs, so JAX's
 computation split and trip counts (``_split_computations``,
 ``_trip_count``) have no counterpart, and neither has
 ``collective_bytes_body_once`` (a loop body read once) or
-``generated_code_size_in_bytes``.  The port's collectives are its FSDP
-design's (every param gathered, gradients reduce-scattered), not JAX's
-tensor-parallel ones, so its collective bytes are its own.
+``generated_code_size_in_bytes``.  The port's collectives are its own
+design's (``launch/steps.py``: params gathered over the batch's dims,
+or whole on the FSDP route, gradients reduce-scattered, and on the
+tensor-parallel route the all-reduces of ``distributed/tensor_parallel``),
+not XLA's, so its collective bytes are its own.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b \
@@ -315,7 +318,7 @@ def place_cell(cfg, shape, mesh):
     if shape.kind == "train":
         ostate = opt.init(params)
         batch = placed_batch(S.train_batch_specs(cfg, shape))
-        fn = St.make_train_step(cfg, opt.OptConfig())
+        fn = St.make_train_step(cfg, opt.OptConfig(), tensor_parallel=True)
         out_sh = (pshard, {"m": pshard, "v": pshard, "step": rep},
                   {"grad_norm": rep, "lr": rep, "loss": rep})
         return fn, (params, ostate, batch), out_sh

@@ -6,14 +6,32 @@ returns them, with JAX's signature).
 
 The train step also runs on params, moments and a batch placed on a
 mesh (DTensors, ``distributed.sharding.distribute``): the counterpart of
-JAX's pjit'd step.  It is FSDP over DTensor: each param is all-gathered
-(``full_tensor``), the loss and its gradient are computed on the rank's
-batch shard, and each gradient is reduce-scattered (summed over the mesh
-dims the batch is split on, in float32) into its param's placements,
-where AdamW updates the shards.  Each rank's loss is weighted by its
-share of the global label count, so the summed loss and gradient are
-those of the global batch.  The ``model`` axis holds shards but does
-not split the compute: the forward runs on whole params.
+JAX's pjit'd step, on one of two routes (:func:`_sharded_value_and_grad`):
+
+* tensor-parallel (``make_train_step(tensor_parallel=True)``, which the
+  dry run and ``chip_smoke.py`` ask for), for the ``"dense"`` and
+  ``"vlm"`` families (olmo-1b, stablelm-1.6b, gemma2-2b, internlm2-20b,
+  paligemma-3b): each param is gathered over the batch's mesh dims and
+  keeps its ``model`` split, and the loss runs on the rank's shards
+  through ``distributed.tensor_parallel`` (column/row-parallel linears,
+  head-split attention, vocab-split embedding and cross-entropy), as
+  XLA's partitioner splits JAX's step;
+* FSDP, for the MoE, SSM, hybrid and audio families (granite-moe,
+  moonshot, mamba2, hymba, whisper), meshes without ``model`` and every
+  family without ``tensor_parallel=True``: each param is gathered whole
+  and the whole loss runs on every rank, so every rank's forward is the
+  unsharded step's, bit for bit, on its rows.  A split contraction
+  rounds otherwise: on a (1, 1) mesh the two routes are bit-equal, on a
+  split ``model`` axis they differ by float32 rounding, as a float64
+  step differs from a float32 one.
+
+On both, the loss and its gradient are computed on the rank's batch
+shard, and each gradient is reduce-scattered (summed over the mesh dims
+the batch is split on, in float32, never over ``model``, whose ranks
+see the same rows) into its param's placements, where AdamW updates
+the shards.  Each rank's loss is weighted by its share of the global
+label count, so the summed loss and gradient are those of the global
+batch.  ``grad_accum`` runs on a mesh too (:func:`_microbatches`).
 
 The prefill and decode steps take DTensor params too, in the same
 design (:func:`_sharded_prefill`, :func:`_sharded_decode`): JAX's dry
@@ -23,33 +41,48 @@ run pjits all three kinds of step.
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import (
+    DTensor,
+    Partial,
+    Replicate,
+    Shard,
+    distribute_tensor,
+)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.tensor_parallel import for_step as tp_for_step
 from repro_torch.launch.mesh import dp_axes
+from repro_torch.models import transformer
 from repro_torch.models.api import get_model
 from repro_torch.train import optimizer as opt
-from repro_torch.tree import leaves, map_tree, unflatten_like
+from repro_torch.tree import (
+    leaves,
+    leaves_with_path,
+    map_tree,
+    unflatten_like,
+)
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: opt.OptConfig,
-                    grad_accum: int = 1):
+                    grad_accum: int = 1, *, tensor_parallel: bool = False):
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
     ``batch`` holds tensors on the params' device.  grad_accum > 1 splits
     it into microbatches run one after another; their gradients are
     summed in float32 and divided by ``grad_accum``, as are their losses
-    (JAX's ``lax.scan`` over the microbatches).  A param the loss does not
-    reach (a GLU's ``wg`` under the spiking FFN) gets a zero gradient, as
-    ``jax.grad`` gives it.
+    (JAX's ``lax.scan`` over the microbatches), on a mesh as without
+    one.  A param the loss does not reach (a GLU's ``wg`` under the
+    spiking FFN) gets a zero gradient, as ``jax.grad`` gives it.
+    ``tensor_parallel`` picks the route on a mesh (module docstring).
     """
     mb = get_model(cfg)
 
     def value_and_grad(params, batch):
         flat = leaves(params)
         if isinstance(flat[0], DTensor):
-            return _sharded_value_and_grad(mb, params, batch)
+            return _sharded_value_and_grad(mb, cfg, params, batch,
+                                           tensor_parallel)
         for p in flat:
             p.requires_grad_(True)
         loss = mb.loss_fn(params, batch)
@@ -57,20 +90,15 @@ def make_train_step(cfg: ArchConfig, opt_cfg: opt.OptConfig,
         return loss.detach(), unflatten_like(params, list(grads))
 
     def train_step(params, opt_state, batch):
-        if grad_accum > 1 and isinstance(leaves(params)[0], DTensor):
-            raise NotImplementedError("grad_accum > 1 on a mesh")
         if grad_accum == 1:
             loss, grads = value_and_grad(params, batch)
         else:
-            split = {k: v.reshape(grad_accum, v.shape[0] // grad_accum,
-                                  *v.shape[1:]) for k, v in batch.items()}
             grads = map_tree(lambda p: torch.zeros_like(
                 p, dtype=torch.float32), params)
             lsum = torch.zeros((), dtype=torch.float32,
                                device=leaves(params)[0].device)
-            for i in range(grad_accum):
-                loss_i, g = value_and_grad(
-                    params, {k: v[i] for k, v in split.items()})
+            for micro in _microbatches(batch, grad_accum):
+                loss_i, g = value_and_grad(params, micro)
                 map_tree(lambda acc, gi: acc.add_(gi), grads, g)
                 lsum = lsum + loss_i
             grads = map_tree(lambda acc: acc / grad_accum, grads)
@@ -83,16 +111,50 @@ def make_train_step(cfg: ArchConfig, opt_cfg: opt.OptConfig,
     return train_step
 
 
-def _sharded_value_and_grad(mb, params, batch):
+def _microbatches(batch, n: int) -> list:
+    """``batch`` split into ``n`` microbatches of consecutive rows, as
+    JAX's ``reshape(n, B // n, ...)`` splits it: microbatch ``i`` holds
+    the global rows ``[i * B / n, (i + 1) * B / n)``.  A placed batch is
+    gathered (it is small beside the params) and each microbatch placed
+    as the batch was, so a rank's microbatch rows are not its own rows
+    of the batch: splitting those would pair other rows in a microbatch,
+    and a microbatch's loss is a mean over its own labels."""
+    def split(v):
+        whole = v.full_tensor() if isinstance(v, DTensor) else v
+        parts = whole.reshape(n, whole.shape[0] // n, *whole.shape[1:])
+        if not isinstance(v, DTensor):
+            return list(parts)
+        return [distribute_tensor(t, v.device_mesh, v.placements,
+                                  src_data_rank=None) for t in parts]
+
+    cut = {k: split(v) for k, v in batch.items()}
+    return [{k: parts[i] for k, parts in cut.items()} for i in range(n)]
+
+
+def _sharded_value_and_grad(mb, cfg, params, batch, split_model=False):
     """(global loss, gradients placed as the params) of DTensor params on
-    a DTensor batch split along its first dim."""
+    a DTensor batch split along its first dim, on the route the module
+    docstring gives ``cfg``'s family (``split_model``: tensor-parallel
+    where the family takes it)."""
     flat = leaves(params)
     mesh = flat[0].device_mesh
-    full = [p.full_tensor().detach().requires_grad_(True) for p in flat]
-    local = {k: v.to_local() for k, v in batch.items()}
+    tp = tp_for_step(cfg, mesh) if split_model else None
     # the batch's data dims: there, gradients and counts are partial sums
     split = next(iter(batch.values())).placements
     partial = [Partial() if pl.is_shard(0) else Replicate() for pl in split]
+    model = (mesh.mesh_dim_names.index("model") if tp is not None
+             else None)
+    fwd, back = [], []
+    for path, _ in leaves_with_path(params):
+        f, b = (tp.placements(path) if tp is not None
+                else (Replicate(), Replicate()))
+        fwd.append([f if i == model else Replicate()
+                    for i in range(mesh.ndim)])
+        back.append([b if i == model else pl
+                     for i, pl in enumerate(partial)])
+    held = [p.redistribute(mesh, pl).to_local().detach().requires_grad_(True)
+            for p, pl in zip(flat, fwd)]
+    local = {k: v.to_local() for k, v in batch.items()}
 
     def summed(t):
         return DTensor.from_local(t, mesh, partial,
@@ -100,12 +162,14 @@ def _sharded_value_and_grad(mb, params, batch):
 
     count = torch.sum(local["labels"] >= 0).to(torch.float32)
     share = count / torch.clamp_min(summed(count), 1.0)
-    loss = mb.loss_fn(unflatten_like(params, full), local) * share
-    grads = torch.autograd.grad(loss, full, materialize_grads=True)
-    placed = [DTensor.from_local(g.to(torch.float32), mesh, partial,
+    tree = unflatten_like(params, held)
+    loss = (mb.loss_fn(tree, local) if tp is None else
+            transformer.loss_fn(tree, cfg, local, tp=tp)) * share
+    grads = torch.autograd.grad(loss, held, materialize_grads=True)
+    placed = [DTensor.from_local(g.to(torch.float32), mesh, pl,
                                  run_check=False)
               .redistribute(mesh, p.placements)
-              for g, p in zip(grads, flat)]
+              for g, p, pl in zip(grads, flat, back)]
     return summed(loss.detach()), unflatten_like(params, placed)
 
 

@@ -56,11 +56,16 @@ def linear_init(gen: torch.Generator, d_in, d_out, dtype, bias=False,
 
 
 def linear(p, x: torch.Tensor, pc: Optional[PrecisionConfig] = None,
-           mode: str = "fake") -> torch.Tensor:
+           mode: str = "fake", tp=None) -> torch.Tensor:
     """y = x @ W (+ b), through the precision-selected path.
 
     p["w"] is either a dense (d_in, d_out) tensor, or, in packed serving
     mode, a QuantizedTensor holding (d_out, d_in) sub-word packed codes.
+
+    ``tp`` (a ``distributed.tensor_parallel.TensorParallel``) makes it a
+    row-parallel linear: ``x`` and W's rows are this rank's share of the
+    contraction, the partial products are summed over ``tp``'s group,
+    and the bias is added once, after the sum.
     """
     w = p["w"]
     if isinstance(w, QuantizedTensor):
@@ -68,8 +73,11 @@ def linear(p, x: torch.Tensor, pc: Optional[PrecisionConfig] = None,
     else:
         if pc is not None and pc.quantized and mode == "fake":
             # fake-quant along the contraction: groups run over d_in
-            w = fake_quant(w.T, pc).T
+            w = fake_quant(w.T, pc).T if tp is None else \
+                tp.fake_quant_rows(w, pc)
         y = x @ w.to(x.dtype)
+        if tp is not None:
+            y = tp.reduce_out(y)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
@@ -327,13 +335,17 @@ def ffn_init(gen: torch.Generator, d: int, d_ff: int, kind: str, dtype,
 
 
 def ffn_apply(p, x: torch.Tensor, kind: str, act: str, pc=None,
-              mode="fake") -> torch.Tensor:
+              mode="fake", tp=None) -> torch.Tensor:
+    """The FFN; with ``tp``, ``d_ff`` split over its group (``wi``/``wg``
+    column-parallel, ``wo`` row-parallel)."""
     a = act_fn(act)
+    if tp is not None:
+        x = tp.copy_in(x)
     if kind == "glu":
         h = a(linear(p["wg"], x, pc, mode)) * linear(p["wi"], x, pc, mode)
     else:
         h = a(linear(p["wi"], x, pc, mode))
-    return linear(p["wo"], h, pc, mode)
+    return linear(p["wo"], h, pc, mode, tp=tp)
 
 
 # ---------------------------------------------------------------------------
@@ -343,7 +355,7 @@ def ffn_apply(p, x: torch.Tensor, kind: str, act: str, pc=None,
 
 def spiking_ffn_apply(p, x: torch.Tensor, act: str, *, timesteps: int,
                       leak_shift: int, threshold: float, pc=None,
-                      mode="fake") -> torch.Tensor:
+                      mode="fake", tp=None) -> torch.Tensor:
     """FFN whose hidden activation is a LIF population run for T
     timesteps on the direct-encoded current; the output integrates the
     hidden spikes' rate.
@@ -351,15 +363,18 @@ def spiking_ffn_apply(p, x: torch.Tensor, act: str, *, timesteps: int,
     Rate-coded twin of the dense FFN: the forward uses core/lif.py's
     shift-add leak dynamics (float twin, fast-sigmoid surrogate gradient
     for training).  ``act`` is unused, as in the JAX package; so is a GLU
-    FFN's ``wg``.
+    FFN's ``wg``.  With ``tp`` the hidden units split over its group (the
+    LIF rollout is elementwise over them), as in :func:`ffn_apply`.
     """
     from repro_torch.core.lif import LIFConfig, lif_rollout_float
 
     cfg = LIFConfig(leak_shift=leak_shift, threshold=threshold,
                     timesteps=timesteps)
+    if tp is not None:
+        x = tp.copy_in(x)
     cur = linear(p["wi"], x, pc, mode)                    # (..., d_ff)
     cur_t = cur.expand(timesteps, *cur.shape)
     v0 = torch.zeros_like(cur)
     _, s_t = lif_rollout_float(v0, cur_t, cfg)            # (T, ..., d_ff)
     rate = torch.mean(s_t, dim=0)                         # firing rate
-    return linear(p["wo"], rate.to(x.dtype), pc, mode)
+    return linear(p["wo"], rate.to(x.dtype), pc, mode, tp=tp)

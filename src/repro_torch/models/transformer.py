@@ -27,6 +27,11 @@ through ``torch.utils.checkpoint``'s selective checkpointing) and
 recomputes the rest, in place of ``jax.checkpoint`` and its
 ``dots_with_no_batch_dims_saveable`` policy.
 
+``loss_fn(tp=)`` runs the dense layers tensor-parallel over a mesh's
+``model`` axis (``distributed.tensor_parallel``: the params are the
+rank's shards, the sharded train step passes the context); with
+``tp=None`` nothing of this module changes.
+
 Forward modes:
   forward_hidden  full sequence (train / prefill), chunked flash-style
                   attention for long sequences; returns the summed MoE
@@ -159,7 +164,7 @@ def _attn_scale(cfg: ArchConfig) -> float:
 
 def _attn_block(lp, cfg: ArchConfig, x, *, window: int, prefix_len: int = 0,
                 q_offset=0, cache_kv=None, cache_len=None, ragged=False,
-                kv_len: Optional[int] = None):
+                kv_len: Optional[int] = None, tp=None):
     """Self-attention (full sequence or decode).  Returns (out, (k, v)).
     ``prefix_len`` leading positions are attended bidirectionally (the
     VLM prefix) in the full-sequence path.
@@ -167,13 +172,21 @@ def _attn_block(lp, cfg: ArchConfig, x, *, window: int, prefix_len: int = 0,
     In decode, ``cache_kv`` holds this layer's cache tensors, which are
     written in place; ``kv_len`` (>= every slot's length) bounds the part
     of a bf16 cache the attention reads (the rest is masked anyway).
+
+    ``tp`` (full sequence only) splits the heads: ``lp`` holds the rank's
+    query heads (and KV heads, or ``wk``/``wv`` whole), ``wo`` is
+    row-parallel.
     """
     pc, mode = cfg.precision, cfg.quant_mode
     b, s, _ = x.shape
     hd = cfg.head_dim
-    q = L.linear(lp["wq"], x, pc, mode).reshape(b, s, cfg.n_heads, hd)
-    k = L.linear(lp["wk"], x, pc, mode).reshape(b, s, cfg.n_kv, hd)
-    v = L.linear(lp["wv"], x, pc, mode).reshape(b, s, cfg.n_kv, hd)
+    nh, nkv = cfg.n_heads, cfg.n_kv
+    if tp is not None:
+        x = tp.copy_in(x)
+        lp, nh, nkv = tp.attn_shard(lp), tp.n_heads, tp.n_kv
+    q = L.linear(lp["wq"], x, pc, mode).reshape(b, s, nh, hd)
+    k = L.linear(lp["wk"], x, pc, mode).reshape(b, s, nkv, hd)
+    v = L.linear(lp["wv"], x, pc, mode).reshape(b, s, nkv, hd)
     ar = torch.arange(s, dtype=torch.int32, device=x.device)
     off = torch.as_tensor(q_offset, dtype=torch.int32, device=x.device)
     pos = off[:, None] + ar[None] if off.ndim == 1 else off + ar
@@ -182,6 +195,8 @@ def _attn_block(lp, cfg: ArchConfig, x, *, window: int, prefix_len: int = 0,
     scale = _attn_scale(cfg)
 
     if cache_kv is None:
+        if tp is not None:
+            k, v = tp.expand_kv(k), tp.expand_kv(v)
         o = L.attention(q, k, v, scale=scale, causal=True, window=window,
                         prefix_len=prefix_len,
                         logit_cap=cfg.attn_logit_softcap)
@@ -205,7 +220,7 @@ def _attn_block(lp, cfg: ArchConfig, x, *, window: int, prefix_len: int = 0,
             q, kp, ks_, vp, vs_, bits=bits, scale=scale,
             cache_len=cache_len, window=window,
             logit_cap=cfg.attn_logit_softcap)
-        o = L.linear(lp["wo"], o.reshape(b, s, cfg.n_heads * hd), pc, mode)
+        o = L.linear(lp["wo"], o.reshape(b, s, nh * hd), pc, mode)
         return o, (kp, ks_, vp, vs_)
     else:
         k_cache, v_cache = cache_kv
@@ -235,14 +250,15 @@ def _attn_block(lp, cfg: ArchConfig, x, *, window: int, prefix_len: int = 0,
             cache_len=cache_len, window=window,
             logit_cap=cfg.attn_logit_softcap)
         k, v = k_cache, v_cache
-    o = L.linear(lp["wo"], o.reshape(b, s, cfg.n_heads * hd), pc, mode)
+    o = L.linear(lp["wo"], o.reshape(b, s, nh * hd), pc, mode, tp=tp)
     return o, (k, v)
 
 
-def _mlp_block(lp, cfg: ArchConfig, x, *, decode=False):
+def _mlp_block(lp, cfg: ArchConfig, x, *, decode=False, tp=None):
     """The MLP half's mixer: (y, aux) with the MoE load-balance loss as
     ``aux`` (0 for the other FFNs).  MoE takes the dense-mix path at
-    decode and the dispatch path otherwise."""
+    decode and the dispatch path otherwise.  ``tp`` splits a dense or
+    spiking FFN's ``d_ff``."""
     pc, mode = cfg.precision, cfg.quant_mode
     if cfg.moe is not None:
         return MOE.moe_apply(lp, x, cfg.moe, ffn_kind=cfg.ffn, act=cfg.act,
@@ -251,8 +267,8 @@ def _mlp_block(lp, cfg: ArchConfig, x, *, decode=False):
         return L.spiking_ffn_apply(
             lp, x, cfg.act, timesteps=cfg.spiking.timesteps,
             leak_shift=cfg.spiking.leak_shift,
-            threshold=cfg.spiking.threshold, pc=pc, mode=mode), 0.0
-    return L.ffn_apply(lp, x, cfg.ffn, cfg.act, pc, mode), 0.0
+            threshold=cfg.spiking.threshold, pc=pc, mode=mode, tp=tp), 0.0
+    return L.ffn_apply(lp, x, cfg.ffn, cfg.act, pc, mode, tp=tp), 0.0
 
 
 def _mix(lp, parts, dtype):
@@ -265,46 +281,58 @@ def _mix(lp, parts, dtype):
         * 0.5
 
 
-def _residual_tail(lp, cfg: ArchConfig, x, a, *, decode=False):
+def _residual_tail(lp, cfg: ArchConfig, x, a, *, decode=False, tp=None):
     """x + the mixers' output (post-norm'd), then the MLP half of the
-    block.  Returns (x, aux)."""
+    block (``tp``: the tensor-parallel context).  Returns (x, aux)."""
     if cfg.post_block_norms:
         a = L.apply_norm(cfg.norm, lp["post_ln1"], a)
     x = x + a
     aux = 0.0
     if "mlp" in lp:
         h2 = L.apply_norm(cfg.norm, lp["ln2"], x)
-        m, aux = _mlp_block(lp["mlp"], cfg, h2, decode=decode)
+        m, aux = _mlp_block(lp["mlp"], cfg, h2, decode=decode,
+                            tp=tp and tp.on("mlp"))
         if cfg.post_block_norms:
             m = L.apply_norm(cfg.norm, lp["post_ln2"], m)
         x = x + m
     return x, aux
 
 
-def _embed_tokens(params, cfg: ArchConfig, tokens, vision_embeds=None):
+def _embed_tokens(params, cfg: ArchConfig, tokens, vision_embeds=None,
+                  tp=None):
     """Token embeddings (scaled by sqrt(d) for the gemma families), with
-    ``vision_proj`` of the image embeddings prepended (VLM)."""
-    x = params["embed"][tokens].to(_dtype(cfg))
+    ``vision_proj`` of the image embeddings prepended (VLM).  ``tp``
+    looks the tokens up in a vocab-split table and runs ``vision_proj``
+    column-parallel, where those split."""
+    if tp is not None and tp.vocab:
+        x = tp.embed(params["embed"], tokens).to(_dtype(cfg))
+    else:
+        x = params["embed"][tokens].to(_dtype(cfg))
     if cfg.name.startswith(("gemma", "paligemma")):
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
     if cfg.vision_prefix_len and vision_embeds is not None:
-        ve = L.linear(params["vision_proj"], vision_embeds.to(x.dtype))
+        if tp is not None and tp.vision:
+            ve = tp.gather_last(L.linear(params["vision_proj"], tp.copy_in(
+                vision_embeds.to(x.dtype))))
+        else:
+            ve = L.linear(params["vision_proj"], vision_embeds.to(x.dtype))
         x = torch.cat([ve, x], dim=1)
     return x
 
 
-def _block_full(lp, cfg: ArchConfig, x, window: int, emit=None):
+def _block_full(lp, cfg: ArchConfig, x, window: int, emit=None, tp=None):
     """One full-sequence layer (train / prefill path).  Returns (x, aux);
     with ``emit`` (a dict), also puts the layer's cache entries there:
     ``k``/``v`` (quantized when ``kv_cache_bits != 16``) and the SSM's
-    ``conv``/``ssm``."""
+    ``conv``/``ssm``.  ``tp``: the tensor-parallel context (train)."""
     pc, mode = cfg.precision, cfg.quant_mode
     h = L.apply_norm(cfg.norm, lp["ln1"], x)
     parts = []
     if cfg.family != "ssm":
         a, (k, v) = _attn_block(lp["attn"], cfg, h, window=window,
-                                prefix_len=cfg.vision_prefix_len)
+                                prefix_len=cfg.vision_prefix_len,
+                                tp=tp and tp.on("heads"))
         parts.append(a)
         if emit is not None and cfg.kv_cache_bits != 16:
             emit["k"], emit["k_scale"] = kv_ref.quantize_kv(
@@ -322,7 +350,7 @@ def _block_full(lp, cfg: ArchConfig, x, window: int, emit=None):
                                     pc=pc, mode=mode, return_state=True)
             emit["conv"], emit["ssm"] = st["conv"], st["ssm"]
         parts.append(s)
-    return _residual_tail(lp, cfg, x, _mix(lp, parts, x.dtype))
+    return _residual_tail(lp, cfg, x, _mix(lp, parts, x.dtype), tp=tp)
 
 
 #: what ``remat="dots"`` keeps for the backward pass: the outputs of
@@ -331,11 +359,12 @@ def _block_full(lp, cfg: ArchConfig, x, window: int, emit=None):
 _DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
 
 
-def forward_hidden(params, cfg: ArchConfig, tokens, vision_embeds=None):
+def forward_hidden(params, cfg: ArchConfig, tokens, vision_embeds=None,
+                   tp=None):
     """tokens: (B, S_text) -> (hidden (B, S, d), summed aux loss), S the
-    text and any vision prefix."""
+    text and any vision prefix.  ``tp``: the tensor-parallel context."""
     check_supported(cfg)
-    x = _embed_tokens(params, cfg, tokens, vision_embeds)
+    x = _embed_tokens(params, cfg, tokens, vision_embeds, tp=tp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     kw = {}
     if cfg.remat == "dots":
@@ -343,15 +372,18 @@ def forward_hidden(params, cfg: ArchConfig, tokens, vision_embeds=None):
             create_selective_checkpoint_contexts, _DOTS)
     for lp, window in zip(params["layers"], window_schedule(cfg)):
         if cfg.remat == "none":
-            x, aux_l = _block_full(lp, cfg, x, int(window))
+            x, aux_l = _block_full(lp, cfg, x, int(window), tp=tp)
         else:
             x, aux_l = checkpoint(_block_full, lp, cfg, x, int(window),
-                                  use_reentrant=False, **kw)
+                                  use_reentrant=False, tp=tp, **kw)
         aux = aux + aux_l
     return L.apply_norm(cfg.norm, params["final_norm"], x), aux
 
 
-def _logits_chunk(params, cfg: ArchConfig, h):
+def _logits_chunk(params, cfg: ArchConfig, h, tp=None):
+    """float32 logits of ``h``; with ``tp``, the rank's vocab slice."""
+    if tp is not None:
+        h = tp.copy_in(h)
     if cfg.tie_embeddings:
         logits = h.to(torch.float32) @ params["embed"].to(torch.float32).T
     else:
@@ -359,10 +391,12 @@ def _logits_chunk(params, cfg: ArchConfig, h):
     return L.softcap(logits, cfg.final_logit_softcap)
 
 
-def _chunk_loss(params, cfg: ArchConfig, hb, lb):
+def _chunk_loss(params, cfg: ArchConfig, hb, lb, tp=None):
     """Summed cross-entropy of one sequence chunk and its count of
-    unmasked labels."""
-    logits = _logits_chunk(params, cfg, hb)
+    unmasked labels; with ``tp``, over vocab-split logits."""
+    logits = _logits_chunk(params, cfg, hb, tp)
+    if tp is not None:
+        return tp.cross_entropy(logits, lb)
     mask = (lb >= 0).to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1,
@@ -370,17 +404,19 @@ def _chunk_loss(params, cfg: ArchConfig, hb, lb):
     return torch.sum((lse - tgt[..., 0]) * mask), torch.sum(mask)
 
 
-def loss_fn(params, cfg: ArchConfig, batch, *, ce_chunk: int = 512):
+def loss_fn(params, cfg: ArchConfig, batch, *, ce_chunk: int = 512,
+            tp=None):
     """Sequence-chunked cross-entropy plus the MoE aux loss.  batch:
     tokens (B, S), labels (B, S) with -1 = masked; VLM batches add
     vision_embeds, whose positions carry no loss.  ``S`` splits into
     ``max(1, S // ce_chunk)`` chunks, one fewer until the count divides
     ``S`` (JAX's rule); each chunk's logits are recomputed in the
     backward pass (``torch.utils.checkpoint`` in place of
-    ``jax.checkpoint``)."""
+    ``jax.checkpoint``).  ``tp``: the tensor-parallel context of the
+    sharded train step (``distributed.tensor_parallel``)."""
     tokens, labels = batch["tokens"], batch["labels"]
     h, aux = forward_hidden(params, cfg, tokens,
-                            batch.get("vision_embeds"))
+                            batch.get("vision_embeds"), tp=tp)
     if cfg.vision_prefix_len:
         h = h[:, cfg.vision_prefix_len:]
     s_len = h.shape[1]
@@ -393,7 +429,7 @@ def loss_fn(params, cfg: ArchConfig, batch, *, ce_chunk: int = 512):
     for c in range(nc):
         t, n = checkpoint(_chunk_loss, params, cfg, h[:, c * cs:(c + 1) * cs],
                           labels[:, c * cs:(c + 1) * cs],
-                          use_reentrant=False)
+                          tp and tp.on("vocab"), use_reentrant=False)
         tot, cnt = tot + t, cnt + n
     return tot / torch.clamp_min(cnt, 1.0) + aux
 

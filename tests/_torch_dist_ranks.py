@@ -1,4 +1,5 @@
-"""One rank of a multi-rank case of ``test_torch_distributed.py``.
+"""One rank of a multi-rank case of ``test_torch_distributed.py`` (and
+of ``test_torch_tensor_parallel.py``: :func:`case_tp`).
 
 Run as ``python tests/_torch_dist_ranks.py CASE RANK WORLD DIR``: joins a
 gloo group through ``file://DIR/store``, reads the case's inputs from
@@ -225,8 +226,107 @@ def case_serve(rank, world, inp):
     return out
 
 
+def _matmul_flops(fn, *args) -> int:
+    """The matmul FLOPs of one call of ``fn`` on this rank."""
+    from repro_torch.perfmodel import flops as F
+
+    class Matmuls(F._FlopCounter):
+        def charge(self, func, a, o):
+            if func.overloadpacket in F._MATMULS:
+                super().charge(func, a, o)
+
+    with Matmuls() as c:
+        fn(*args)
+    return c.total
+
+
+def case_tp(rank, world, inp):
+    """``tests/test_torch_tensor_parallel.py``: for each ``model`` size of
+    ``inp["meshes"]``, on a (world / model, model) mesh, each case's 2
+    steps of ``make_train_step`` (the case's ``grad_accum`` and route)
+    from the case's params, placed by the sharding rules.  Returns the
+    losses, the ``model`` placement each leaf took in the forward and
+    backward, and on rank 0 the whole params and moments after each
+    step; with ``flops``, the rank's matmul FLOPs of one step on each
+    route and of the unsharded step on the rank's rows, on a
+    (world / 2, 2) mesh."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.train import optimizer as opt
+    from repro_torch.tree import map_tree
+
+    seen = {}
+    orig = TP.TensorParallel.placements
+
+    def placements(self, path):
+        out = orig(self, path)
+        seen["/".join(str(k) for k in path)] = tuple(repr(p) for p in out)
+        return out
+
+    TP.TensorParallel.placements = placements
+
+    def whole(tree):
+        # every rank gathers; a copy, as a replicated leaf's full_tensor
+        # is the moment itself, which the next step updates in place
+        full = map_tree(lambda t: t.full_tensor().clone(), tree)
+        return convert.lm_params_to_numpy(full) if rank == 0 else None
+
+    def placed(mesh, params, batch):
+        params = convert.lm_params_from_numpy(params, device="cpu")
+        params = shd.distribute(params, shd.to_shardings(
+            shd.param_specs(params, mesh), mesh))
+        batch = {k: shd.place(torch.from_numpy(v).to(
+            torch.float32 if v.dtype.kind == "f" else torch.int64),
+            shd.NamedSharding(mesh, shd.batch_spec(k, v.shape, mesh)))
+            for k, v in batch.items()}
+        return params, batch
+
+    out = {}
+    cases = [(make_host_mesh(mp), name, case)
+             for mp, named in inp["meshes"].items()
+             for name, case in named.items()]
+    for mesh, name, case in cases:
+        cfg = case["cfg"]
+        params, batch = placed(mesh, case["params"], case["batch"])
+        ostate = opt.init(params)
+        step = make_train_step(cfg, case["opt"], case.get("grad_accum", 1),
+                               tensor_parallel=case["tp"])
+        seen.clear()
+        res = {"losses": [], "steps": []}
+        for _ in range(2):
+            params, ostate, m = step(params, ostate, batch)
+            res["losses"].append(m["loss"].item())
+            res["steps"].append({"params": whole(params),
+                                 "m": whole(ostate["m"]),
+                                 "v": whole(ostate["v"])})
+        res["split"] = dict(seen)
+        res["placed"] = all(tuple(a.placements) == tuple(b.placements)
+                            for a, b in zip(leaves(params),
+                                            leaves(ostate["m"])))
+        out[name] = res
+    if "flops" in inp:
+        case = inp["flops"]
+        cfg = case["cfg"]
+        mesh = make_host_mesh(2)
+        got = {}
+        for route in (True, False):
+            params, batch = placed(mesh, case["params"], case["batch"])
+            step = make_train_step(cfg, case["opt"], tensor_parallel=route)
+            got["tp" if route else "fsdp"] = _matmul_flops(
+                step, params, opt.init(params), batch)
+        whole_p = convert.lm_params_from_numpy(case["params"], device="cpu")
+        rows = {k: v.to_local() for k, v in batch.items()}
+        step = make_train_step(cfg, case["opt"])
+        got["unsharded"] = _matmul_flops(step, whole_p, opt.init(whole_p),
+                                         rows)
+        out["flops"] = got
+    return out
+
+
 CASES = {"cp": case_cp, "ef": case_ef, "pipe": case_pipe, "step": case_step,
-         "restore": case_restore, "serve": case_serve}
+         "restore": case_restore, "serve": case_serve, "tp": case_tp}
 
 
 def main(case, rank, world, d):
