@@ -193,7 +193,12 @@
    params saved from the mesh and ``restore(shardings=)``d, bit-equal;
    vgg9 INT4 ``fusion=()`` / ``"auto"`` and resnet18 ``"auto"`` through
    ``SNNServeEngine(data_parallel=True)``: logits bit-equal and launch
-   counts equal to ``data_parallel=False``, images/s of both.  More
+   counts equal to ``data_parallel=False``, images/s of both; olmo-1b
+   (bf16 params) prefilled over 8 x 512 tokens and decoded 32 steps by
+   ``make_prefill_step`` / ``make_decode_step`` (tensor-parallel on
+   placed params) over a bf16 and an INT4 KV cache (16
+   ``kv_attention`` a step), logits and cache bit-equal to the
+   unsharded steps, ms a decode step and peak memory of both.  More
    than one rank on a mesh axis needs more cards: the CPU tests run
    those over gloo.
 
@@ -202,18 +207,25 @@
    mesh at full depth (tensor-parallel: arguments + temp under 80 GB a
    device, ``flops_per_device`` beside a 256th of the cell's FLOPs) and
    its roofline, then the card cell dry-run on one fake rank against the
-   real step on the card (FLOPs equal, peak within 25%).
+   real step on the card (FLOPs equal, peak within 25%).  The host work
+   (the CLI and the one-rank dry run, subprocesses that need no card)
+   runs beside the kernel build (``start_dryrun_host``), and the
+   script waits for it before the first timed phase.
 
 Exits non-zero on any failure and without a card.  The line before the
 last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import atexit
 import contextlib
 import json
 import os
+import shlex
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3331,6 +3343,152 @@ def _dp_serve(dev, model, images, data_parallel):
     return launches, logits, len(images) / wall, eng
 
 
+def _tp_serve(dev, card, mesh):
+    """The tensor-parallel serve steps on the (1, 1) mesh: olmo-1b at full
+    width (16 layers, d 2048, bf16 params), a prefill of 8 x 512 tokens
+    padded to 1024 and 32 decode steps of ``make_prefill_step`` /
+    ``make_decode_step`` (their tensor-parallel route) on params placed by
+    ``to_shardings``, once over a bf16 KV cache and once over an INT4 one,
+    against the unsharded ``prefill`` / ``decode_step`` from the same
+    params, fed the same (greedy) tokens: logits and cache bit-equal (on
+    one rank the KV-head split is the unsharded arithmetic), the route's
+    contexts asserted (one a step, cache split by KV heads), 16
+    ``kv_attention`` launches a step on the INT4 route; ms a decode step
+    and peak memory of both.  Returns the INT4 route's decode launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels.kv_attention import ops as kv_ops
+    from repro_torch.launch import steps as St
+    from repro_torch.models import transformer
+
+    base = get_config("olmo-1b")
+    params = transformer.init(0, base, device=dev)
+    placed = shd.distribute(params, shd.to_shardings(
+        shd.param_specs(params, mesh), mesh))
+    b, s_len, max_len, n_steps = 8, 512, 1024, 32
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, base.vocab, (b, s_len)), dtype=torch.int64, device=dev)
+    contexts, for_step = [], St.tp_for_step
+
+    def counted_for_step(c, m):
+        contexts.append(for_step(c, m))
+        return contexts[-1]
+
+    def put(t, spec_of):
+        return shd.place(t, shd.NamedSharding(mesh, spec_of(t.shape)))
+
+    def whole(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    def run(cfg, sharded, feed=None):
+        """(logits of the prefill and each step, the tokens fed, the
+        prefill's and the last step's cache, decode ms a step, peak GiB
+        over what was allocated before, kv_attention launches of the
+        decode steps)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        with torch.no_grad():
+            if sharded:
+                logits, pre = St.make_prefill_step(cfg)(placed, {
+                    "tokens": put(toks, lambda sh: shd.batch_spec(
+                        "tokens", sh, mesh))})
+                pre = {k: whole(v) for k, v in pre.items()}
+                cache = {k: put(v, lambda sh, k=k: shd.cache_entry_spec(
+                    k, sh, mesh)) for k, v in _pad_cache(pre, max_len).items()}
+                step = St.make_decode_step(cfg)
+            else:
+                logits, pre = transformer.prefill(params, cfg, toks)
+                cache = _pad_cache(pre, max_len)
+            out, fed = [whole(logits)], []
+            torch.cuda.synchronize()
+            kv_ops.quant_kv_decode_attention.launches = 0
+            t0 = time.perf_counter()
+            for i in range(n_steps):
+                tok = (torch.argmax(out[-1], -1).reshape(b, 1)
+                       if feed is None else feed[i])
+                fed.append(tok)
+                if sharded:
+                    logits, cache = step(placed, cache, put(
+                        tok, lambda sh: shd.batch_spec("tokens", sh, mesh)))
+                else:
+                    logits, cache = transformer.decode_step(params, cfg,
+                                                            cache, tok)
+                out.append(whole(logits))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / n_steps
+            launches = kv_ops.quant_kv_decode_attention.launches
+        return (out, fed, pre, {k: whole(v) for k, v in cache.items()}, ms,
+                (torch.cuda.max_memory_allocated() - before) / 2 ** 30,
+                launches)
+
+    runs = {}
+    St.tp_for_step = counted_for_step
+    try:
+        for bits in (16, 4):
+            cfg = dataclasses.replace(base, kv_cache_bits=bits)
+            ref = run(cfg, False)
+            contexts.clear()
+            mine = run(cfg, True, ref[1])
+            routes = [c and c.cache for c in contexts]
+            if routes != ["heads"] * (1 + n_steps):
+                raise AssertionError(f"tensor-parallel serve (KV {bits}): "
+                                     f"routes {routes}")
+            same = (all(torch.equal(a, w) for a, w in zip(mine[0], ref[0]))
+                    and all(torch.equal(mine[k][key], ref[k][key])
+                            for k in (2, 3) for key in ref[k]))
+            if not same:
+                raise AssertionError(f"tensor-parallel serve (KV {bits}): "
+                                     f"logits or cache differ from the "
+                                     f"unsharded steps")
+            want = cfg.n_layers * n_steps if bits != 16 else 0
+            if mine[6] != want or ref[6] != want:
+                raise AssertionError(f"tensor-parallel serve (KV {bits}): "
+                                     f"kv_attention launches {mine[6]} "
+                                     f"(unsharded {ref[6]}), expected "
+                                     f"{want}")
+            if bits != 16:
+                runs["dist tp int4-kv"] = {"kv_attention": mine[6]}
+            kv = "bf16" if bits == 16 else "INT4"
+            print(f"distributed: olmo-1b full width ({cfg.n_layers} "
+                  f"layers, d {cfg.d_model}, {cfg.dtype} params), "
+                  f"{kv} KV cache, prefill {b} x {s_len} padded to "
+                  f"{max_len} and {n_steps} decode steps of "
+                  f"make_prefill_step / make_decode_step (tensor-parallel) "
+                  f"on the (1, 1) mesh vs the unsharded steps "
+                  f"[{card}]: route {routes[0]} ({len(routes)} contexts), "
+                  f"logits and cache bit-equal, kv_attention launches "
+                  f"{mine[6]} ({mine[6] // n_steps} a step); ms a decode "
+                  f"step {mine[4]:.2f} vs {ref[4]:.2f} unsharded; peak "
+                  f"over the memory held before {mine[5]:.2f} / "
+                  f"{ref[5]:.2f} GiB", flush=True)
+            del ref, mine
+            torch.cuda.empty_cache()
+    finally:
+        St.tp_for_step = for_step
+    # what a collective of the route costs on the one-rank group: a
+    # decode step makes 2 all-reduces a layer and one for the embedding
+    x = torch.zeros((b, 1, base.d_model), dtype=torch.bfloat16, device=dev)
+    contexts[-1].all_reduce(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        contexts[-1].all_reduce(x)
+    torch.cuda.synchronize()
+    print(f"distributed: one all-reduce of the route's ({b}, 1, "
+          f"{base.d_model}) bf16 activation over the one-rank NCCL "
+          f"'model' group: {(time.perf_counter() - t0) * 10:.3f} ms a "
+          f"call, host to device done, over 100 calls [{card}]",
+          flush=True)
+    return runs
+
+
 def distributed_phase(dev, card):
     """The distributed layer on the card, as one NCCL rank:
 
@@ -3357,10 +3515,13 @@ def distributed_phase(dev, card):
     5. vgg9 INT4 ``fusion=()`` and ``"auto"`` and resnet18 ``"auto"`` at
        full width, 16 requests through ``SNNServeEngine(data_parallel=
        True)`` (one replica: one card) and with ``data_parallel=False``:
-       logits bit-equal, the same launch counts, images/s of both.
+       logits bit-equal, the same launch counts, images/s of both;
+    6. the tensor-parallel prefill and decode steps of olmo-1b over a
+       bf16 and an INT4 KV cache against the unsharded ones, bit-equal
+       (:func:`_tp_serve`).
 
     The group is destroyed at the end.  Returns the data-parallel serve
-    runs' launches."""
+    runs' launches and the INT4 tensor-parallel decode steps'."""
     import dataclasses
     import shutil
     import tempfile
@@ -3602,6 +3763,9 @@ def distributed_phase(dev, card):
                   f"{eng.buckets}: logits bit-equal to data_parallel="
                   f"False, launches {l1} (the same); {r1:.1f} images/s vs "
                   f"{r0:.1f} images/s [{card}]", flush=True)
+
+        # 6. the tensor-parallel serve steps
+        runs.update(_tp_serve(dev, card, mesh))
     finally:
         St.tp_for_step = tp_for_step
         dist.destroy_process_group()
@@ -3661,7 +3825,43 @@ def dryrun_one_rank(out_path):
     return 0
 
 
-def dryrun_phase(dev, card):
+def start_dryrun_host():
+    """Start the dry run's host work, which needs no card: ``python -m
+    repro_torch.launch.dryrun --arch olmo-1b --shape train_4k --force``
+    then ``--roofline`` (one shell), and the one-rank dry run
+    (:func:`dryrun_one_rank`) beside them; subprocesses, as a fake
+    process group must not meet this process's NCCL group.  Their output
+    goes to a temporary directory.  :func:`main` starts them beside the
+    kernel build and waits for them before the first timed phase, so
+    that no timed phase shares the host's CPU with them."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    atexit.register(shutil.rmtree, tmp, ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    cli = shlex.join([sys.executable, "-m", "repro_torch.launch.dryrun",
+                      "--arch", "olmo-1b", "--shape", "train_4k"])
+    out = {k: shlex.quote(str(tmp / f"{k}.out"))
+           for k in ("force", "roofline")}
+    procs = {"cli": subprocess.Popen(
+        ["/bin/sh", "-c", f"{cli} --force > {out['force']} 2>&1 && "
+                          f"{cli} --roofline > {out['roofline']} 2>&1"],
+        env=env, cwd=ROOT)}
+    with open(tmp / "one_rank.err", "w") as err:
+        procs["one_rank"] = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"),
+             "--dryrun-one-rank", str(tmp / "one_rank.json")],
+            stdout=subprocess.DEVNULL, stderr=err, env=env, cwd=ROOT)
+    return {"tmp": tmp, "procs": procs}
+
+
+def stop_dryrun_host(host):
+    """Kill what :func:`start_dryrun_host` started and is still running."""
+    for proc in host["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def dryrun_phase(dev, card, host):
     """The device-free dry run (``launch/dryrun.py``), then the dry run
     held against the card.
 
@@ -3687,9 +3887,6 @@ def dryrun_phase(dev, card):
        allocated before the inputs.  Prints the dry run's ``t_comp``
        and ``t_mem`` on one H100 beside the step's device ms
        (torch.profiler)."""
-    import shutil
-    import tempfile
-
     import torch
     import torch.distributed as dist
 
@@ -3703,24 +3900,21 @@ def dryrun_phase(dev, card):
     from repro_torch.train import optimizer as opt
 
     t_phase = time.perf_counter()
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     gib = 2 ** 30
+    tmp, procs = host["tmp"], host["procs"]
 
     # 1. the CLI on the fake 16 x 16 mesh
-    cli = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-           "olmo-1b", "--shape", "train_4k"]
-    for extra in (["--force"], ["--roofline"]):
-        t0 = time.perf_counter()
-        out = subprocess.run(cli + extra, capture_output=True, text=True,
-                             timeout=600, env=env, cwd=ROOT)
-        wall = time.perf_counter() - t0
-        if out.returncode:
-            raise AssertionError(f"dryrun {' '.join(extra)}: exit "
-                                 f"{out.returncode}\n{out.stderr[-3000:]}")
-        lines = [ln for ln in out.stdout.splitlines()
+    for extra in ("force", "roofline"):
+        log = tmp / f"{extra}.out"
+        text = log.read_text() if log.exists() else ""
+        lines = [ln for ln in text.splitlines()
                  if ln.startswith(("[OK ]", "[FAIL]", "[ROOF"))]
+        if procs["cli"].returncode or not lines:
+            raise AssertionError(f"dryrun --{extra}: exit "
+                                 f"{procs['cli'].returncode}\n"
+                                 f"{text[-3000:]}")
         print(f"dryrun: python -m repro_torch.launch.dryrun --arch olmo-1b "
-              f"--shape train_4k {' '.join(extra)}: {wall:.1f} s host wall; "
+              f"--shape train_4k --{extra} (run beside the kernel build): "
               + " | ".join(lines), flush=True)
     rec = json.loads((D.RESULTS_DIR / "olmo-1b__train_4k__pod16x16.json")
                      .read_text())
@@ -3753,66 +3947,56 @@ def dryrun_phase(dev, card):
                              f"{held / 1e9:.2f} GB a device, over 80 GB")
 
     # 2. the dry run against the card, one rank
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    if procs["one_rank"].returncode:
+        raise AssertionError(
+            f"one-rank dry run: exit {procs['one_rank'].returncode}\n"
+            f"{(tmp / 'one_rank.err').read_text()[-3000:]}")
+    fake = json.loads((tmp / "one_rank.json").read_text())
+    cfg, shape = _dryrun_cell()
+    torch.cuda.empty_cache()
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp / "store"), 1), rank=0, world_size=1)
     try:
-        t0 = time.perf_counter()
-        out = subprocess.run(
-            [sys.executable, str(ROOT / "chip_smoke.py"),
-             "--dryrun-one-rank", str(tmp / "one_rank.json")],
-            capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
-        if out.returncode:
-            raise AssertionError(f"one-rank dry run: exit {out.returncode}"
-                                 f"\n{out.stderr[-3000:]}")
-        fake = json.loads((tmp / "one_rank.json").read_text())
-        t_fake = time.perf_counter() - t0
+        mesh = make_host_mesh(1)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        params = transformer.init(0, cfg, device=dev)
+        params = shd.distribute(params, shd.to_shardings(
+            shd.param_specs(params, mesh), mesh))
+        ostate = opt.init(params)
+        batch = {k: shd.place(v.to(torch.int32), shd.NamedSharding(
+            mesh, shd.batch_spec(k, v.shape, mesh)))
+            for k, v in _lm_batch(cfg, shape.global_batch,
+                                  shape.seq_len, 0, dev).items()}
+        args = (params, ostate, batch)
+        step = make_train_step(cfg, opt.OptConfig(),
+                               tensor_parallel=True)
+        arg_bytes = D.nbytes(args)
 
-        cfg, shape = _dryrun_cell()
+        real_flops = F.count_fn_flops(step, *args)
+        by_op = {}
+        if real_flops != fake["flops_per_device"]:
+            class Tally(F._FlopCounter):
+                """The FLOPs of each op, by name."""
+
+                def charge(self, func, a, o):
+                    f = F._op_flops(func, a, o)
+                    key = func.overloadpacket.__name__
+                    by_op[key] = by_op.get(key, 0) + f
+
+            with Tally():
+                step(*args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before
+        dev_ms = _device_ms(lambda: step(*args), reps=2)
+        del params, ostate, batch, args
         torch.cuda.empty_cache()
-        torch.cuda.set_device(dev)
-        dist.init_process_group("nccl", store=dist.FileStore(
-            str(tmp / "store"), 1), rank=0, world_size=1)
-        try:
-            mesh = make_host_mesh(1)
-            torch.cuda.synchronize()
-            before = torch.cuda.memory_allocated()
-            params = transformer.init(0, cfg, device=dev)
-            params = shd.distribute(params, shd.to_shardings(
-                shd.param_specs(params, mesh), mesh))
-            ostate = opt.init(params)
-            batch = {k: shd.place(v.to(torch.int32), shd.NamedSharding(
-                mesh, shd.batch_spec(k, v.shape, mesh)))
-                for k, v in _lm_batch(cfg, shape.global_batch,
-                                      shape.seq_len, 0, dev).items()}
-            args = (params, ostate, batch)
-            step = make_train_step(cfg, opt.OptConfig(),
-                                   tensor_parallel=True)
-            arg_bytes = D.nbytes(args)
-
-            real_flops = F.count_fn_flops(step, *args)
-            by_op = {}
-            if real_flops != fake["flops_per_device"]:
-                class Tally(F._FlopCounter):
-                    """The FLOPs of each op, by name."""
-
-                    def charge(self, func, a, o):
-                        f = F._op_flops(func, a, o)
-                        key = func.overloadpacket.__name__
-                        by_op[key] = by_op.get(key, 0) + f
-
-                with Tally():
-                    step(*args)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            step(*args)
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated() - before
-            dev_ms = _device_ms(lambda: step(*args), reps=2)
-            del params, ostate, batch, args
-            torch.cuda.empty_cache()
-        finally:
-            dist.destroy_process_group()
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        dist.destroy_process_group()
 
     rel = abs(real_flops - fake["flops_per_device"]) / real_flops
     differ = {k: (fake["flops_by_op"].get(k, 0), by_op.get(k, 0))
@@ -3823,7 +4007,8 @@ def dryrun_phase(dev, card):
     t_mem = fake["hbm_bytes_est"] / HBM_BW * 1e3
     print(f"dryrun: olmo-1b full width ({cfg.n_layers} layers, {cfg.dtype}, "
           f"W4 QAT, remat {cfg.remat}), batch {shape.global_batch} x "
-          f"{shape.seq_len}, one rank: dry run ({t_fake:.1f} s host, a "
+          f"{shape.seq_len}, one rank: dry run (a walk of "
+          f"{fake['wall_s']:.1f} s on the host, beside the kernel build, a "
           f"one-rank fake group) against the sharded step on the card "
           f"[{card}]: flops {fake['flops_per_device']:.6e} vs "
           f"{real_flops:.6e} (relative {rel:.2e}; ops that differ: "
@@ -3874,10 +4059,22 @@ def main() -> int:
 
     from repro_torch.kernels import build
 
-    t0 = time.perf_counter()
-    logs = build.build_all()
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, "
-          f"{len(logs)} sources in parallel)", flush=True)
+    # the dry run's host work needs no card: it runs beside the build,
+    # and is done before the first timed phase
+    dry_host = start_dryrun_host()
+    try:
+        t0 = time.perf_counter()
+        logs = build.build_all()
+        print(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc, "
+              f"sm_90a, {len(logs)} sources in parallel; the dry run's "
+              f"host work beside it)", flush=True)
+        t0 = time.perf_counter()
+        for proc in dry_host["procs"].values():
+            proc.wait(timeout=600)
+        print(f"the dry run's host work: done {time.perf_counter() - t0:.1f}"
+              f" s after the build", flush=True)
+    finally:
+        stop_dryrun_host(dry_host)
     for name, log in logs.items():
         entry = ""
         for line in log.splitlines():
@@ -3974,6 +4171,9 @@ def main() -> int:
         "olmo serve": {"packed_qmatmul": ["decode layer"] * 16},
         "olmo int4-kv": {"packed_qmatmul": ["decode layer"] * 16,
                          "kv_attention": ["decode"] * 16},
+        # the distributed phase's tensor-parallel decode steps (float
+        # linears): the same cache geometry as olmo int4-kv's
+        "dist tp int4-kv": {"kv_attention": ["decode"] * 16},
         # the serve phase's 16 prefills (36-251 tokens at seed 0; those
         # under 64 tokens take the gemv variant), the uniform 8 x 512 one
         "olmo serve prefill": {"packed_qmatmul": [
@@ -4054,7 +4254,7 @@ def main() -> int:
     runs.update(obs_phase(dev, smi))
     # after every other phase, so that their numbers do not move
     runs.update(distributed_phase(dev, smi))
-    dryrun_phase(dev, smi)
+    dryrun_phase(dev, smi, dry_host)
     print("kernel record: ms, plain_ms, library_ms and bound_ms are device "
           "time per call (torch.profiler), summed over the distinct "
           "geometries the main paths launch the kernel at (one call each; "
@@ -4076,7 +4276,8 @@ def main() -> int:
           "prefills and decode steps together; the families phase's six "
           "runs, their prefills counted apart; packed_qmatmul also one "
           "decode layer of each family at M=8, kv_attention also Hymba's "
-          "and PaliGemma's INT4 caches); "
+          "and PaliGemma's INT4 caches and the distributed phase's 32 "
+          "tensor-parallel olmo-1b decode steps over INT4 KV); "
           "paths gives each path's launches and its kernel ms per B=8 "
           "forward (NCE: per step of each geometry; olmo and the families: "
           "per decode step, per INT4-KV prefill, and over the serve "

@@ -1,12 +1,13 @@
 """Tensor-parallel compute over a mesh's ``model`` axis, for the sharded
-train step of the dense transformer families.
+train, prefill and decode steps of the dense transformer families.
 
-JAX pjits its train step onto ``sharding.py``'s specs, and XLA's
-partitioner splits the compute where a spec names ``model``.  The port
-has no partitioner, so this module does that work by hand, in
-Megatron's form: :class:`TensorParallel` is the context that
-``launch/steps.py`` hands to ``models/transformer.py`` and
-``models/layers.py`` (``tp=``; ``None`` on the unsharded path).
+JAX pjits its steps onto ``sharding.py``'s specs, and XLA's partitioner
+splits the compute where a spec names ``model``.  The port has no
+partitioner, so this module does that work by hand, in Megatron's form:
+:class:`TensorParallel` is the context that ``launch/steps.py`` hands to
+``models/transformer.py`` and ``models/layers.py`` (``tp=``; ``None`` on
+the unsharded path).  The three kinds of step share the splits below;
+the serve steps add where the KV cache lies (:attr:`TensorParallel.cache`).
 
 Routes, by ``cfg.family`` (:func:`for_step`):
 
@@ -49,6 +50,24 @@ summed over the batch's mesh dims only: a split param's gradient is its
 own slice, a param run whole has the same gradient on every ``model``
 rank, and ``wk``/``wv`` gathered for their KV heads have partial sums
 (:meth:`placements`).
+
+The prefill and decode steps run the same splits forward only, and the
+KV cache stays where ``sharding.cache_entry_spec`` puts ``model``
+(:attr:`TensorParallel.cache`):
+
+* ``"heads"`` (the KV heads split: olmo-1b, stablelm-1.6b on 16): the
+  rank computes, writes and attends over its own KV heads;
+* ``"seq"`` (the sequence split: internlm2-20b, gemma2-2b, paligemma-3b
+  on 16): a prefill keeps every KV head of the rank's positions
+  (computed from ``wk``/``wv`` whole); a decode step writes the new
+  position on the rank that holds it and attends over the rank's
+  positions with every query head (gathered where split,
+  :meth:`gather_heads`), the softmax's max, sum and ``p @ v`` reduced
+  over ``model`` (:meth:`softmax`, :meth:`all_reduce`): the merge
+  ``kv_attention.cu`` does across a thread-block cluster, across ranks;
+* ``"whole"`` (neither divides ``model``): every rank holds and writes
+  the whole cache and attends with its query heads over the KV heads
+  they read (:meth:`kv_view`).
 
 The collectives are ``torch.distributed``'s functional ones
 (``_c10d_functional``), which the dry run's walker counts.
@@ -158,7 +177,10 @@ class TensorParallel:
     over it.  Flags: ``heads`` (query heads split), ``kv`` (KV heads
     split with them), ``mlp`` (``d_ff`` split), ``vocab``, ``vision``
     (``vision_proj``'s outputs split).  :meth:`on` gives the context for
-    a part that splits, else ``None``."""
+    a part that splits, else ``None``.  ``cache``: where a serve step's
+    KV cache splits over ``model`` (``"heads"``, ``"seq"`` or
+    ``"whole"``; module docstring), which the step sets; ``None`` in the
+    train step."""
 
     def __init__(self, cfg, mesh):
         self.group = mesh.get_group("model")
@@ -173,6 +195,7 @@ class TensorParallel:
         self.head_dim = cfg.head_dim
         self.n_heads = cfg.n_heads // m if self.heads else cfg.n_heads
         self.n_kv, self._kv_cols, self._kv_index = cfg.n_kv, None, None
+        self.cache: Optional[str] = None
         if self.kv:
             self.n_kv = cfg.n_kv // m
         elif self.heads:
@@ -225,6 +248,30 @@ class TensorParallel:
     def gather_last(self, x: torch.Tensor) -> torch.Tensor:
         return _GatherLast.apply(x, self.group, self.size, self.rank)
 
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        return _all_reduce(x, op, self.group)
+
+    def gather_heads(self, q: torch.Tensor) -> torch.Tensor:
+        """``(B, S, n_heads / model, hd)`` -> every rank's heads, in
+        order."""
+        b, s, h, hd = q.shape
+        return self.gather_last(q.reshape(b, s, h * hd)).reshape(
+            b, s, h * self.size, hd)
+
+    def softmax(self, s: torch.Tensor) -> torch.Tensor:
+        """``torch.softmax`` over the last dim of scores split over
+        ``model``: ``exp(s - max) / sum``, the max and the sum reduced
+        over the group."""
+        m = self.all_reduce(torch.amax(s, dim=-1, keepdim=True), "max")
+        e = torch.exp(s - m)
+        return e / self.all_reduce(torch.sum(e, dim=-1, keepdim=True))
+
+    def seq_range(self, n: int) -> tuple:
+        """This rank's positions ``[lo, hi)`` of a length-``n`` sequence
+        split over ``model``."""
+        per = n // self.size
+        return self.rank * per, (self.rank + 1) * per
+
     # --- layers -------------------------------------------------------------
 
     def attn_shard(self, lp):
@@ -249,6 +296,15 @@ class TensorParallel:
         if self._kv_index is None:
             return t
         return t[:, :, self._kv_index.to(t.device)]
+
+    def kv_view(self, t: torch.Tensor) -> torch.Tensor:
+        """A cache ``(B, S, n_kv, ...)`` holding every KV head -> the KV
+        heads this rank's query heads read (:meth:`expand_kv`'s
+        layout)."""
+        if self._kv_cols is None:
+            return t
+        lo, hi = (c // self.head_dim for c in self._kv_cols)
+        return self.expand_kv(t[:, :, lo:hi])
 
     def fake_quant_rows(self, w: torch.Tensor, pc) -> torch.Tensor:
         """``fake_quant(W.T).T`` of a row-parallel ``W`` (``d_in`` split):
@@ -301,9 +357,9 @@ class TensorParallel:
 
 
 def for_step(cfg, mesh) -> Optional[TensorParallel]:
-    """The train step's context on ``mesh``, or ``None`` for the FSDP
-    route (the families outside ``"dense"``/``"vlm"``, a MoE or hybrid
-    config, a mesh without a ``model`` axis)."""
+    """A step's context on ``mesh``, or ``None`` for the FSDP route (the
+    families outside ``"dense"``/``"vlm"``, a MoE or hybrid config, a
+    mesh without a ``model`` axis)."""
     if (cfg.family not in ("dense", "vlm") or cfg.moe is not None
             or cfg.hybrid_parallel_ssm
             or "model" not in (mesh.mesh_dim_names or ())):

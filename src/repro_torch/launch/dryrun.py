@@ -15,9 +15,9 @@ runs the cell's step itself, on nothing:
   strides, no storage, so a cell allocates nothing on any device;
 * params, moments, batch and cache are ``launch/specs.py``'s stand-ins
   placed by ``distributed/sharding.py``'s specs (DTensors), and the step
-  is the port's own sharded step (``launch/steps.py``: for train,
-  tensor-parallel over ``model`` for the dense and VLM families and FSDP
-  for the others; FSDP for prefill and decode);
+  is the port's own sharded step (``launch/steps.py``: train, prefill
+  and decode tensor-parallel over ``model`` for the dense and VLM
+  families, FSDP for the others);
 * :class:`CellWalker`, a dispatch mode, meets every op rank 0 runs, at
   the rank's local shapes (``perfmodel.flops.LocalOpMode``: a DTensor
   op is handed on to DTensor, whose local ops and collectives come
@@ -64,8 +64,9 @@ computation split and trip counts (``_split_computations``,
 ``generated_code_size_in_bytes``.  The port's collectives are its own
 design's (``launch/steps.py``: params gathered over the batch's dims,
 or whole on the FSDP route, gradients reduce-scattered, and on the
-tensor-parallel route the all-reduces of ``distributed/tensor_parallel``),
-not XLA's, so its collective bytes are its own.
+tensor-parallel route the all-reduces of ``distributed/tensor_parallel``
+and a serve step's softmax merge over a sequence-split cache), not
+XLA's, so its collective bytes are its own.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b \

@@ -33,9 +33,28 @@ the shards.  Each rank's loss is weighted by its share of the global
 label count, so the summed loss and gradient are those of the global
 batch.  ``grad_accum`` runs on a mesh too (:func:`_microbatches`).
 
-The prefill and decode steps take DTensor params too, in the same
-design (:func:`_sharded_prefill`, :func:`_sharded_decode`): JAX's dry
-run pjits all three kinds of step.
+The prefill and decode steps take DTensor params too (JAX's dry run
+pjits all three kinds of step), forward only (:func:`_sharded_prefill`,
+:func:`_sharded_decode`).  They need no flag: with no AdamW after them
+there is no rounding to keep bit-equal, so they take the
+tensor-parallel route wherever the family and mesh allow it
+(``tensor_parallel.for_step`` is not ``None``), and FSDP elsewhere:
+
+* tensor-parallel, for the dense and VLM families on a mesh with
+  ``model``: each param keeps its ``model`` split, as in the train
+  step, the model runs on the rank's shards and the KV cache stays
+  where ``sharding.cache_entry_spec`` puts ``model``: split by KV heads,
+  by sequence or whole (``distributed.tensor_parallel``'s three cache
+  routes); the logits come out vocab-split.  A packed (INT4) cache
+  split by sequence is the one exception: a decode step gathers each
+  of its layers over ``model`` (:class:`_LayerRows`) and attends whole,
+  as ``kv_attention`` returns no log-sum-exp to merge;
+* FSDP, for the other families, as in the train step: every param
+  gathered whole and the whole model on the rank's rows; a decode step
+  gathers each cache layer over ``model`` for its rows.
+
+Either way the outputs are placed as JAX's dry run's out shardings
+say, with no gather where the rank's layout already is the spec's.
 """
 
 from __future__ import annotations
@@ -142,18 +161,13 @@ def _sharded_value_and_grad(mb, cfg, params, batch, split_model=False):
     # the batch's data dims: there, gradients and counts are partial sums
     split = next(iter(batch.values())).placements
     partial = [Partial() if pl.is_shard(0) else Replicate() for pl in split]
-    model = (mesh.mesh_dim_names.index("model") if tp is not None
-             else None)
-    fwd, back = [], []
+    back = []
     for path, _ in leaves_with_path(params):
-        f, b = (tp.placements(path) if tp is not None
-                else (Replicate(), Replicate()))
-        fwd.append([f if i == model else Replicate()
-                    for i in range(mesh.ndim)])
-        back.append([b if i == model else pl
+        b = tp.placements(path)[1] if tp is not None else Replicate()
+        back.append([b if _is_model(mesh, i) else pl
                      for i, pl in enumerate(partial)])
-    held = [p.redistribute(mesh, pl).to_local().detach().requires_grad_(True)
-            for p, pl in zip(flat, fwd)]
+    held = [p.detach().requires_grad_(True)
+            for p in _held(params, mesh, tp)]
     local = {k: v.to_local() for k, v in batch.items()}
 
     def summed(t):
@@ -171,6 +185,26 @@ def _sharded_value_and_grad(mb, cfg, params, batch, split_model=False):
               .redistribute(mesh, p.placements)
               for g, p, pl in zip(grads, flat, back)]
     return summed(loss.detach()), unflatten_like(params, placed)
+
+
+def _is_model(mesh, i: int) -> bool:
+    """Whether mesh dim ``i`` is the ``model`` axis."""
+    return (mesh.mesh_dim_names or (None,) * mesh.ndim)[i] == "model"
+
+
+def _held(params, mesh, tp) -> list:
+    """Each param's local tensor for a sharded step's forward: gathered
+    whole (``tp`` ``None``: FSDP), or split over ``model`` as
+    ``tp.placements`` says and gathered over the mesh's other dims."""
+    held = []
+    for path, p in leaves_with_path(params):
+        f = tp.placements(path)[0] if tp is not None else Replicate()
+        want = tuple(f if _is_model(mesh, i) else Replicate()
+                     for i in range(mesh.ndim))
+        # a param placed as the step holds it needs no redistribution
+        held.append(p.to_local() if tuple(p.placements) == want else
+                    p.redistribute(mesh, want).to_local())
+    return held
 
 
 def make_prefill_step(cfg: ArchConfig):
@@ -201,47 +235,66 @@ def make_decode_step(cfg: ArchConfig):
 
 
 # --- the serve steps on a mesh -----------------------------------------------
-# The train step's FSDP design: every param is all-gathered, the model
-# runs whole on the rank's batch rows (the batch's or the tokens' dim-0
-# placements), and the outputs are placed as JAX's dry run's out
+# Both routes run on the rank's batch rows (the batch's or the tokens'
+# dim-0 placements) and place the outputs as JAX's dry run's out
 # shardings say: logits by ``sharding.logits_spec``, the cache by
-# ``sharding.cache_specs``.  The ``model`` axis splits the cache, not the
-# compute: where a cache spec shards heads or sequence, a decode step
-# gathers those dims for its rows, one layer at a time (:class:`_LayerRows`).
+# ``sharding.cache_specs``.  On the FSDP route the ``model`` axis splits
+# the cache, not the compute: where a cache spec shards heads or
+# sequence, a decode step gathers those dims for its rows, one layer at
+# a time (:class:`_LayerRows`).  On the tensor-parallel route the rank
+# computes on its share of the cache where it lies.
 
 
-def _rows_at(rows, dim: int) -> tuple:
+def _rows_at(rows, dim: int, model=None, mesh=None) -> tuple:
     """Placements of the rank's batch rows with the batch at ``dim``:
     ``Shard(dim)`` on each mesh dim that ``rows`` (the batch's
-    placements, batch at dim 0) splits dim 0 over, else ``Replicate()``."""
-    return tuple(Shard(dim) if p.is_shard(0) else Replicate() for p in rows)
+    placements, batch at dim 0) splits dim 0 over, else ``Replicate()``;
+    with ``model``, that placement on ``mesh``'s ``model`` dim."""
+    at = [Shard(dim) if p.is_shard(0) else Replicate() for p in rows]
+    if model is not None:
+        at[mesh.mesh_dim_names.index("model")] = model
+    return tuple(at)
 
 
-def _whole(params):
-    flat = leaves(params)
-    return flat[0].device_mesh, unflatten_like(
-        params, [p.full_tensor() for p in flat])
+#: a stacked K/V entry's ``model`` placement on each cache route
+_KV_AT = {"heads": Shard(3), "seq": Shard(2), "whole": Replicate()}
 
 
-def _place_serve_out(cfg, mesh, rows, logits, cache):
+def _kv_route(mesh, shape) -> str:
+    """Where ``cache_entry_spec`` puts ``model`` on a stacked K/V entry
+    of ``shape`` ``(L, B, S, K, ...)``: ``"heads"``, ``"seq"`` or
+    ``"whole"``."""
+    pl = shd.NamedSharding(mesh, shd.cache_entry_spec(
+        "k", shape, mesh, dp_axes(mesh))).placements[
+        mesh.mesh_dim_names.index("model")]
+    return {3: "heads", 2: "seq"}.get(pl.dim if pl.is_shard() else None,
+                                      "whole")
+
+
+def _place_serve_out(cfg, mesh, rows, logits, cache, tp=None):
     """The rank's rows of logits and cache -> DTensors placed by
     ``logits_spec`` and ``cache_specs``.  ``cache`` maps names to local
     tensors (the batch at dim 1; ``len`` at dim 0, or 0-d) or to
-    DTensors already placed, which are kept."""
+    DTensors already placed, which are kept.  With ``tp``, the logits
+    are the rank's vocab slice where the vocab splits and the K/V the
+    rank's share (``tp.cache``)."""
     def place(t, placements, spec_of):
         d = DTensor.from_local(t, mesh, placements, run_check=False)
         return d.redistribute(mesh, shd.NamedSharding(
             mesh, spec_of(tuple(d.shape))).placements)
 
-    out_logits = place(logits, _rows_at(rows, 0),
-                       lambda shape: shd.logits_spec(cfg, shape[0], mesh))
+    split = tp is not None
+    out_logits = place(logits, _rows_at(
+        rows, 0, Shard(1) if split and tp.vocab else None, mesh),
+        lambda shape: shd.logits_spec(cfg, shape[0], mesh))
     out = {}
     for key, t in cache.items():
         if isinstance(t, DTensor):
             out[key] = t
             continue
         at = (tuple(Replicate() for _ in rows) if t.ndim == 0 else
-              _rows_at(rows, 0 if key == "len" else 1))
+              _rows_at(rows, 0) if key == "len" else
+              _rows_at(rows, 1, _KV_AT[tp.cache] if split else None, mesh))
         out[key] = place(t, at, lambda shape, key=key: shd.cache_entry_spec(
             key, shape, mesh, dp_axes(mesh)))
     return out_logits, out
@@ -249,37 +302,69 @@ def _place_serve_out(cfg, mesh, rows, logits, cache):
 
 def _sharded_prefill(mb, cfg, params, batch):
     """Prefill on DTensor params and batch (placed by
-    ``sharding.distribute``): gathered params, the rank's batch rows,
-    logits and cache placed as :func:`_place_serve_out` says."""
-    mesh, full = _whole(params)
-    rows = next(iter(batch.values())).placements
-    logits, cache = mb.prefill(full, {k: v.to_local()
-                                      for k, v in batch.items()})
-    return _place_serve_out(cfg, mesh, rows, logits, cache)
+    ``sharding.distribute``) on the rank's batch rows: gathered params,
+    or on the tensor-parallel route (where the family and mesh take it)
+    the rank's shards emitting its share of the cache; logits
+    and cache placed as :func:`_place_serve_out` says."""
+    mesh = leaves(params)[0].device_mesh
+    first = next(iter(batch.values()))
+    rows = first.placements
+    local = {k: v.to_local() for k, v in batch.items()}
+    tp = tp_for_step(cfg, mesh)
+    if tp is None:
+        full = unflatten_like(params, _held(params, mesh, None))
+        return _place_serve_out(cfg, mesh, rows, *mb.prefill(full, local))
+    tp.cache = _kv_route(mesh, (cfg.n_layers, first.shape[0],
+                                batch["tokens"].shape[1]
+                                + cfg.vision_prefix_len, cfg.n_kv,
+                                cfg.head_dim))
+    held = unflatten_like(params, _held(params, mesh, tp))
+    logits, cache = transformer.prefill(
+        held, cfg, local["tokens"], local.get("vision_embeds"), tp=tp)
+    return _place_serve_out(cfg, mesh, rows, logits, cache, tp)
 
 
 def _sharded_decode(mb, cfg, params, cache, tokens, kv_len):
-    """One decode step on DTensor params, cache and tokens: gathered
-    params, the tokens' rows, each stacked cache entry seen through
-    :class:`_LayerRows` (written back into the placed entries, which the
-    step returns), ``len`` and logits placed by ``cache_specs`` and
+    """One decode step on DTensor params, cache and tokens, on the
+    tokens' rows: gathered params and each stacked cache entry seen
+    through :class:`_LayerRows`, or on the tensor-parallel route (where
+    the family and mesh take it) the rank's shards and
+    its share of each entry in place (through :class:`_LayerRows` where
+    the entry lies otherwise: a packed cache split by sequence is
+    gathered over ``model``); the placed entries are written and
+    returned, ``len`` and logits placed by ``cache_specs`` and
     ``logits_spec``."""
-    mesh, full = _whole(params)
+    mesh = leaves(params)[0].device_mesh
     rows = tokens.placements
+    tp = tp_for_step(cfg, mesh)
+    if tp is not None:
+        tp.cache = _kv_route(mesh, tuple(cache["k"].shape))
+        if tp.cache == "seq" and cfg.kv_cache_bits != 16:
+            tp.cache = "whole"
+    held = unflatten_like(params, _held(params, mesh, tp))
     local, stacks = {}, []
     for key, t in cache.items():
         if key == "len":
             local[key] = (t.to_local() if t.ndim == 0 else
                           t.redistribute(mesh, _rows_at(rows, 0)).to_local())
+            continue
+        at = _rows_at(rows, 1, _KV_AT[tp.cache] if tp is not None else
+                      None, mesh)
+        if tp is not None and tuple(t.placements) == at:
+            local[key] = t.to_local()
         else:
-            local[key] = _LayerRows(t, mesh, _rows_at(rows, 1))
+            local[key] = _LayerRows(t, mesh, at)
             stacks.append(local[key])
-    logits, new = mb.decode_step(full, local, tokens.to_local(),
-                                 kv_len=kv_len)
+    if tp is None:
+        logits, new = mb.decode_step(held, local, tokens.to_local(),
+                                     kv_len=kv_len)
+    else:
+        logits, new = transformer.decode_step(
+            held, cfg, local, tokens.to_local(), kv_len=kv_len, tp=tp)
     for s in stacks:
         s.flush()
     return _place_serve_out(cfg, mesh, rows, logits,
-                            {**cache, "len": new["len"]})
+                            {**cache, "len": new["len"]}, tp)
 
 
 def _drop_dim0(p):
@@ -288,11 +373,13 @@ def _drop_dim0(p):
 
 class _LayerRows:
     """A stacked cache entry ``(L, B, ...)`` placed on a mesh, as a
-    decode step sees it: the rank's batch rows, every other dim whole.
-    Indexing layer ``i`` gathers it (``redistribute`` to ``rows``);
-    indexing the next layer, or :meth:`flush`, splits the layer back into
-    the placed entry, so one layer at a time is held whole.  Assigning a
-    layer (an SSM's new state) replaces the gathered one."""
+    decode step sees it: laid out as ``rows`` (stacked placements: the
+    rank's batch rows, and on the tensor-parallel route its share over
+    ``model``).  Indexing layer ``i`` gathers it (``redistribute`` to
+    ``rows``); indexing the next layer, or :meth:`flush`, splits the
+    layer back into the placed entry, so one layer at a time is held
+    in that layout.  Assigning a layer (an SSM's new state) replaces the
+    gathered one."""
 
     def __init__(self, placed, mesh, rows):
         self.placed, self.mesh = placed, mesh
@@ -301,7 +388,7 @@ class _LayerRows:
         shape = list(placed.shape)
         for p, n in zip(rows, mesh.shape):
             if p.is_shard():
-                shape[1] //= n
+                shape[p.dim] //= n
         self.shape = torch.Size(shape)
         self._open = None
 

@@ -283,9 +283,17 @@ def decode_attention(
     cache_len,                  # int, () or (B,): valid prefix per slot
     window: int = 0,
     logit_cap: Optional[float] = None,
+    k_offset: int = 0,
+    tp=None,
 ) -> torch.Tensor:
     """Single-token attention against a bf16 (or float32) KV cache, with
-    per-slot ``cache_len`` (the serving engine's ragged slots)."""
+    per-slot ``cache_len`` (the serving engine's ragged slots).
+
+    ``tp`` (a ``distributed.tensor_parallel.TensorParallel``): the cache
+    holds this rank's share of a sequence split over ``tp``'s group, its
+    first key at position ``k_offset``; the softmax and ``p @ v`` are
+    reduced over the group, so every rank returns the whole attention.
+    """
     b, _, h, hd = q.shape
     s_len, kh = k_cache.shape[1], k_cache.shape[2]
     g = h // kh
@@ -293,7 +301,8 @@ def decode_attention(
     s = torch.einsum("bkgh,bskh->bkgs", qg,
                      k_cache.to(torch.float32)) * scale
     s = softcap(s, logit_cap)
-    kj = torch.arange(s_len, dtype=torch.int32, device=q.device)[None, :]
+    kj = k_offset + torch.arange(s_len, dtype=torch.int32,
+                                 device=q.device)[None, :]
     clen = torch.broadcast_to(
         torch.as_tensor(cache_len, dtype=torch.int32,
                         device=q.device).reshape(-1, 1), (b, 1))
@@ -303,9 +312,11 @@ def decode_attention(
         ok = ok & (kj > qi - window)
     s = torch.where(ok[:, None, None, :], s,
                     torch.full_like(s[:1, :1, :1, :1], NEG_INF))
-    p = torch.softmax(s, dim=-1)
+    p = torch.softmax(s, dim=-1) if tp is None else tp.softmax(s)
     pv = p.to(v_cache.dtype).to(torch.float32)
     o = torch.einsum("bkgs,bskh->bkgh", pv, v_cache.to(torch.float32))
+    if tp is not None:
+        o = tp.all_reduce(o)
     return o.reshape(b, 1, h, hd).to(q.dtype)
 
 

@@ -27,10 +27,12 @@ through ``torch.utils.checkpoint``'s selective checkpointing) and
 recomputes the rest, in place of ``jax.checkpoint`` and its
 ``dots_with_no_batch_dims_saveable`` policy.
 
-``loss_fn(tp=)`` runs the dense layers tensor-parallel over a mesh's
-``model`` axis (``distributed.tensor_parallel``: the params are the
-rank's shards, the sharded train step passes the context); with
-``tp=None`` nothing of this module changes.
+``loss_fn(tp=)``, ``prefill(tp=)`` and ``decode_step(tp=)`` run the
+dense layers tensor-parallel over a mesh's ``model`` axis
+(``distributed.tensor_parallel``: the params are the rank's shards, the
+sharded steps pass the context; a serve step's cache is the rank's
+share, split as ``tp.cache`` says); with ``tp=None`` nothing of this
+module changes.
 
 Forward modes:
   forward_hidden  full sequence (train / prefill), chunked flash-style
@@ -173,33 +175,44 @@ def _attn_block(lp, cfg: ArchConfig, x, *, window: int, prefix_len: int = 0,
     written in place; ``kv_len`` (>= every slot's length) bounds the part
     of a bf16 cache the attention reads (the rest is masked anyway).
 
-    ``tp`` (full sequence only) splits the heads: ``lp`` holds the rank's
-    query heads (and KV heads, or ``wk``/``wv`` whole), ``wo`` is
-    row-parallel.
+    ``tp``: the tensor-parallel context.  Where it splits the heads,
+    ``lp`` holds the rank's query heads (and KV heads, or ``wk``/``wv``
+    whole) and ``wo`` is row-parallel; elsewhere the heads run whole.  A
+    serve step's ``tp.cache`` says which share of the cache the rank
+    holds: the full-sequence path then returns that share as (k, v),
+    and a decode step writes and attends over it.
     """
     pc, mode = cfg.precision, cfg.quant_mode
     b, s, _ = x.shape
     hd = cfg.head_dim
     nh, nkv = cfg.n_heads, cfg.n_kv
-    if tp is not None:
+    split = tp is not None and tp.heads
+    route = tp.cache if tp is not None else None
+    kvp = lp                # the weights of the K/V computed here
+    if split:
         x = tp.copy_in(x)
-        lp, nh, nkv = tp.attn_shard(lp), tp.n_heads, tp.n_kv
+        nh = tp.n_heads
+        # a decode step over a cache of every KV head computes them all
+        if cache_kv is None or route == "heads":
+            kvp, nkv = tp.attn_shard(lp), tp.n_kv
     q = L.linear(lp["wq"], x, pc, mode).reshape(b, s, nh, hd)
-    k = L.linear(lp["wk"], x, pc, mode).reshape(b, s, nkv, hd)
-    v = L.linear(lp["wv"], x, pc, mode).reshape(b, s, nkv, hd)
+    k = L.linear(kvp["wk"], x, pc, mode).reshape(b, s, nkv, hd)
+    v = L.linear(kvp["wv"], x, pc, mode).reshape(b, s, nkv, hd)
     ar = torch.arange(s, dtype=torch.int32, device=x.device)
     off = torch.as_tensor(q_offset, dtype=torch.int32, device=x.device)
     pos = off[:, None] + ar[None] if off.ndim == 1 else off + ar
     q = L.rope(q, pos, cfg.rope_theta)
     k = L.rope(k, pos, cfg.rope_theta)
     scale = _attn_scale(cfg)
+    wo_tp = tp if split else None
 
     if cache_kv is None:
-        if tp is not None:
-            k, v = tp.expand_kv(k), tp.expand_kv(v)
-        o = L.attention(q, k, v, scale=scale, causal=True, window=window,
+        ka, va = (tp.expand_kv(k), tp.expand_kv(v)) if split else (k, v)
+        o = L.attention(q, ka, va, scale=scale, causal=True, window=window,
                         prefix_len=prefix_len,
                         logit_cap=cfg.attn_logit_softcap)
+        if route not in (None, "heads"):
+            k, v = _cache_share(lp, cfg, x, pos, k, v, tp, split)
     elif cfg.kv_cache_bits != 16:
         if ragged:
             raise NotImplementedError(
@@ -216,12 +229,19 @@ def _attn_block(lp, cfg: ArchConfig, x, *, window: int, prefix_len: int = 0,
         vp.index_copy_(1, ins0, vnew[:, None])
         ks_.index_copy_(1, ins0, ksc[:, None])
         vs_.index_copy_(1, ins0, vsc[:, None])
+        read = (kp, ks_, vp, vs_)
+        if split and route == "whole":
+            read = tuple(tp.kv_view(t) for t in read)
         o = kv_ops.quant_kv_decode_attention(
-            q, kp, ks_, vp, vs_, bits=bits, scale=scale,
+            q, *read, bits=bits, scale=scale,
             cache_len=cache_len, window=window,
             logit_cap=cfg.attn_logit_softcap)
-        o = L.linear(lp["wo"], o.reshape(b, s, nh * hd), pc, mode)
+        o = L.linear(lp["wo"], o.reshape(b, s, nh * hd), pc, mode, tp=wo_tp)
         return o, (kp, ks_, vp, vs_)
+    elif route == "seq":
+        o = _seq_decode(q, k, v, cache_kv, cfg, tp, split, cache_len,
+                        window, kv_len, ragged, scale)
+        k, v = cache_kv
     else:
         k_cache, v_cache = cache_kv
         s_len = k_cache.shape[1]
@@ -245,13 +265,65 @@ def _attn_block(lp, cfg: ArchConfig, x, *, window: int, prefix_len: int = 0,
             k_cache.index_copy_(1, ins0, k.to(k_cache.dtype))
             v_cache.index_copy_(1, ins0, v.to(v_cache.dtype))
         n = s_len if kv_len is None else min(kv_len, s_len)
+        kr, vr = k_cache[:, :n], v_cache[:, :n]
+        if split and route == "whole":
+            kr, vr = tp.kv_view(kr), tp.kv_view(vr)
         o = L.decode_attention(
-            q, k_cache[:, :n], v_cache[:, :n], scale=scale,
-            cache_len=cache_len, window=window,
+            q, kr, vr, scale=scale, cache_len=cache_len, window=window,
             logit_cap=cfg.attn_logit_softcap)
         k, v = k_cache, v_cache
-    o = L.linear(lp["wo"], o.reshape(b, s, nh * hd), pc, mode, tp=tp)
+    o = L.linear(lp["wo"], o.reshape(b, s, nh * hd), pc, mode, tp=wo_tp)
     return o, (k, v)
+
+
+def _cache_share(lp, cfg: ArchConfig, x, pos, k, v, tp, split):
+    """A prefill's K/V of every KV head at the rank's share of the
+    positions (``tp.cache`` ``"seq"``) or at all of them (``"whole"``):
+    sliced from ``k``/``v`` where they hold every KV head, else computed
+    from ``wk``/``wv`` (gathered whole) on those positions alone."""
+    s = x.shape[1]
+    lo, hi = tp.seq_range(s) if tp.cache == "seq" else (0, s)
+    if not split:
+        return k[:, lo:hi], v[:, lo:hi]
+    pc, mode = cfg.precision, cfg.quant_mode
+    xs, ps = x[:, lo:hi], pos[..., lo:hi]
+    shape = (x.shape[0], hi - lo, cfg.n_kv, cfg.head_dim)
+    k = L.rope(L.linear(lp["wk"], xs, pc, mode).reshape(shape), ps,
+               cfg.rope_theta)
+    return k, L.linear(lp["wv"], xs, pc, mode).reshape(shape)
+
+
+def _seq_decode(q, k, v, cache_kv, cfg: ArchConfig, tp, split, cache_len,
+                window, kv_len, ragged, scale):
+    """A decode step's attention over a bf16 cache whose sequence splits
+    over ``model`` (``tp.cache == "seq"``): the rank writes the new
+    position where its share holds it, attends with every query head
+    over its positions (the softmax merged over ``model``) and returns
+    its own query heads' output where the heads split."""
+    if ragged:
+        raise NotImplementedError(
+            "ragged slot lengths over a sequence-split cache are not "
+            "implemented; the sharded decode step is uniform")
+    k_cache, v_cache = cache_kv
+    s_loc = k_cache.shape[1]
+    lo, _ = tp.seq_range(s_loc * tp.size)
+    # the uniform step's one new position, written where this rank holds it
+    at = torch.as_tensor(cache_len, dtype=torch.int64,
+                         device=q.device).reshape(-1)[:1] - 1 - lo
+    ok = ((at >= 0) & (at < s_loc))[:, None, None, None]
+    at = torch.clamp(at, 0, s_loc - 1)
+    for cache, new in ((k_cache, k), (v_cache, v)):
+        cache.index_copy_(1, at, torch.where(
+            ok, new.to(cache.dtype), cache.index_select(1, at)))
+    n = s_loc if kv_len is None else min(max(kv_len - lo, 1), s_loc)
+    qa = tp.gather_heads(q) if split else q
+    o = L.decode_attention(
+        qa, k_cache[:, :n], v_cache[:, :n], scale=scale,
+        cache_len=cache_len, window=window,
+        logit_cap=cfg.attn_logit_softcap, k_offset=lo, tp=tp)
+    if split:
+        o = o[:, :, tp.rank * tp.n_heads:(tp.rank + 1) * tp.n_heads]
+    return o
 
 
 def _mlp_block(lp, cfg: ArchConfig, x, *, decode=False, tp=None):
@@ -325,14 +397,14 @@ def _block_full(lp, cfg: ArchConfig, x, window: int, emit=None, tp=None):
     """One full-sequence layer (train / prefill path).  Returns (x, aux);
     with ``emit`` (a dict), also puts the layer's cache entries there:
     ``k``/``v`` (quantized when ``kv_cache_bits != 16``) and the SSM's
-    ``conv``/``ssm``.  ``tp``: the tensor-parallel context (train)."""
+    ``conv``/``ssm``.  ``tp``: the tensor-parallel context (train, and
+    a prefill's, whose emitted K/V are the rank's share of the cache)."""
     pc, mode = cfg.precision, cfg.quant_mode
     h = L.apply_norm(cfg.norm, lp["ln1"], x)
     parts = []
     if cfg.family != "ssm":
         a, (k, v) = _attn_block(lp["attn"], cfg, h, window=window,
-                                prefix_len=cfg.vision_prefix_len,
-                                tp=tp and tp.on("heads"))
+                                prefix_len=cfg.vision_prefix_len, tp=tp)
         parts.append(a)
         if emit is not None and cfg.kv_cache_bits != 16:
             emit["k"], emit["k_scale"] = kv_ref.quantize_kv(
@@ -470,21 +542,25 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device="cuda"):
     return cache
 
 
-def prefill(params, cfg: ArchConfig, tokens, vision_embeds=None):
+def prefill(params, cfg: ArchConfig, tokens, vision_embeds=None, tp=None):
     """tokens (B, S_text) -> (last-token logits (B, vocab) f32, cache with
     ``len`` = S and each layer's K/V of length S and SSM state), S the
-    text and any vision prefix."""
+    text and any vision prefix.  ``tp``: the tensor-parallel context of
+    the sharded prefill; the logits are then the rank's vocab slice
+    where the vocab splits, and the K/V the rank's share of the cache
+    (``tp.cache``)."""
     check_supported(cfg)
-    x = _embed_tokens(params, cfg, tokens, vision_embeds)
+    x = _embed_tokens(params, cfg, tokens, vision_embeds, tp=tp)
     bsz, s_len = x.shape[:2]
     outs = {}
     for lp, window in zip(params["layers"], window_schedule(cfg)):
         emit = {}
-        x, _ = _block_full(lp, cfg, x, int(window), emit=emit)
+        x, _ = _block_full(lp, cfg, x, int(window), emit=emit, tp=tp)
         for key, t in emit.items():
             outs.setdefault(key, []).append(t)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
-    logits = _logits_chunk(params, cfg, x[:, -1:])[:, 0]
+    logits = _logits_chunk(params, cfg, x[:, -1:],
+                           tp and tp.on("vocab"))[:, 0]
     cache = {"len": torch.full((bsz,), s_len, dtype=torch.int32,
                                device=x.device)}
     for key in _CACHE_KEYS:
@@ -494,7 +570,7 @@ def prefill(params, cfg: ArchConfig, tokens, vision_embeds=None):
 
 
 def decode_step(params, cfg: ArchConfig, cache, tokens, *, ragged=False,
-                kv_len: Optional[int] = None):
+                kv_len: Optional[int] = None, tp=None):
     """One decode step.  tokens: (B, 1).  Returns (logits (B, vocab) f32,
     cache), the cache updated in place.
 
@@ -511,16 +587,21 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, *, ragged=False,
     cache is full (JAX would clamp the write onto the last position),
     and the ragged path leaves that to the engine, which retires a slot
     at ``max_len``.  SSM layers step their conv/state cache, which has
-    no length."""
+    no length.
+
+    ``tp``: the tensor-parallel context of the sharded decode step; the
+    logits are then the rank's vocab slice where the vocab splits, and
+    the cache the rank's share (``tp.cache``)."""
     check_supported(cfg)
     pc, mode = cfg.precision, cfg.quant_mode
-    x = _embed_tokens(params, cfg, tokens)   # a gather: the same bits as
-    #                                          JAX's one-hot contraction
+    x = _embed_tokens(params, cfg, tokens, tp=tp)   # a gather: the same
+    #                                  bits as JAX's one-hot contraction
     new_len = cache["len"] + 1
     attn = cfg.family != "ssm"
     longest = None
     if attn:
-        s_len = cache["k"].shape[2]
+        s_len = cache["k"].shape[2] * (
+            tp.size if tp is not None and tp.cache == "seq" else 1)
         longest = int(new_len.max()) if kv_len is None else kv_len
         if not ragged and longest > s_len:
             raise ValueError(f"decode_step: the cache holds {s_len} "
@@ -540,7 +621,7 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, *, ragged=False,
             a, _ = _attn_block(lp["attn"], cfg, h, window=int(window),
                                q_offset=new_len - 1,
                                cache_kv=ckv, cache_len=new_len,
-                               ragged=ragged, kv_len=longest)
+                               ragged=ragged, kv_len=longest, tp=tp)
             parts.append(a)
         if "ssm" in lp:
             s, st = M2.mamba2_decode_step(
@@ -551,8 +632,8 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, *, ragged=False,
             cache["ssm"][i] = st["ssm"]
             parts.append(s)
         x, _ = _residual_tail(lp, cfg, x, _mix(lp, parts, x.dtype),
-                              decode=True)
+                              decode=True, tp=tp)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
-    logits = _logits_chunk(params, cfg, x)[:, 0]
+    logits = _logits_chunk(params, cfg, x, tp and tp.on("vocab"))[:, 0]
     cache["len"] = new_len
     return logits, cache

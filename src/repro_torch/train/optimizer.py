@@ -4,7 +4,8 @@ Port of ``repro.train.optimizer``.  This is not ``torch.optim.AdamW``:
 the gradient is clipped by its global norm first (scale
 ``min(1, clip / (gnorm + 1e-9))``), the step is ``mh / (sqrt(vh) + eps)``
 from bias-corrected moments, decoupled weight decay joins the step on
-tensors with ``ndim >= 2`` only, and ``lr`` is ``schedule(step + 1)``.
+the leaves whose JAX counterpart has ``ndim >= 2`` (:func:`decays`), and
+``lr`` is ``schedule(step + 1)``.
 There is no float32 master copy: a bfloat16 param is updated in float32
 and cast back, as the JAX package does.  :func:`update` works in place
 (params, ``m`` and ``v``) under ``torch.no_grad()``, each elementwise
@@ -29,7 +30,8 @@ from typing import Any, Tuple
 import torch
 from torch.distributed.tensor import DTensor
 
-from repro_torch.tree import leaves, map_tree
+from repro_torch.convert import LAYER_STACKS
+from repro_torch.tree import leaves, leaves_with_path, map_tree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +81,19 @@ def _sq_sum(g: torch.Tensor) -> torch.Tensor:
     return s.full_tensor() if isinstance(s, DTensor) else s
 
 
+def decays(path, p: torch.Tensor) -> bool:
+    """Whether AdamW decays the leaf ``p`` at ``path``: JAX decays a
+    leaf of ``ndim >= 2``, and stacks each layer's params into ``(L,
+    ...)`` leaves (the decoder layers of every LM family, whisper's
+    encoder and decoder layers: ``convert.LAYER_STACKS``), where the
+    port keeps a list of per-layer leaves.  A leaf in such a list counts
+    one dim more, so a layer's ``(d,)`` norm scales and biases decay and
+    a per-layer scalar does not."""
+    stacked = (len(path) > 1 and path[0] in LAYER_STACKS
+               and isinstance(path[1], int))
+    return p.ndim + stacked >= 2
+
+
 def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(_sq_sum(g) for g in leaves(tree)))
 
@@ -97,16 +112,18 @@ def update(grads, state: dict, params, cfg: OptConfig
     bc1 = 1 - torch.pow(b1, step_f)
     bc2 = 1 - torch.pow(b2, step_f)
 
-    def upd(p, g, m, v):
+    def upd(p, g, m, v, decay):
         p, g, m, v = _local(p), _local(g), _local(m), _local(v)
         g = g.to(torch.float32) * scale
         m.copy_(b1 * m + (1 - b1) * g)
         v.copy_(b2 * v + (1 - b2) * g * g)
         delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        if p.ndim >= 2:  # decoupled weight decay on matrices only
+        if decay:  # decoupled weight decay on JAX's matrices only
             delta = delta + cfg.weight_decay * p.to(torch.float32)
         p.copy_((p.to(torch.float32) - lr * delta).to(p.dtype))
 
-    map_tree(upd, params, grads, state["m"], state["v"])
+    for (path, p), g, m, v in zip(leaves_with_path(params), leaves(grads),
+                                  leaves(state["m"]), leaves(state["v"])):
+        upd(p, g, m, v, decays(path, p))
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -1,5 +1,6 @@
 """One rank of a multi-rank case of ``test_torch_distributed.py`` (and
-of ``test_torch_tensor_parallel.py``: :func:`case_tp`).
+of ``test_torch_tensor_parallel.py``: :func:`case_tp`; of
+``test_torch_tp_serve.py``: :func:`case_tp_serve`).
 
 Run as ``python tests/_torch_dist_ranks.py CASE RANK WORLD DIR``: joins a
 gloo group through ``file://DIR/store``, reads the case's inputs from
@@ -157,18 +158,81 @@ def case_cp(rank, world, inp):
     return {"loss": loss.item(), "seen": seen}
 
 
+def _serve_run(mesh, cfg, params, placed, batch, steps_, pad=2):
+    """A prefill and a decode step for each of ``steps_`` on ``placed``
+    (params placed on ``mesh``) against the unsharded steps on
+    ``params``, from the prefill's cache padded by ``pad`` positions:
+    for each step, (max |got - want| / max |want|, placements, the
+    spec's placements) of the logits and every cache entry; and each
+    step's whole outputs."""
+    import torch.nn.functional as F
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.tree import map_tree
+
+    def put(tree, spec_of):
+        return {k: shd.place(v, shd.NamedSharding(mesh, spec_of(k, v)))
+                for k, v in tree.items()}
+
+    def check(got, want):
+        """(max |got - want| / max |want|, placements)."""
+        full = got.full_tensor()
+        err = float(torch.max(torch.abs(full.double() - want.double()))
+                    / torch.clamp_min(torch.max(torch.abs(
+                        want.double())), 1e-30)) if want.numel() else 0.0
+        return err, tuple(got.placements)
+
+    def checks(logits, cache, want_logits, want_cache):
+        res = {"logits": check(logits, want_logits) + (
+            shd.NamedSharding(mesh, shd.logits_spec(
+                cfg, want_logits.shape[0], mesh)).placements,)}
+        for k, v in want_cache.items():
+            res[k] = check(cache[k], v) + (shd.NamedSharding(
+                mesh, shd.cache_entry_spec(k, v.shape, mesh)).placements,)
+        return res
+
+    def whole(logits, cache):
+        return {"logits": logits.full_tensor(),
+                **{k: v.full_tensor() for k, v in cache.items()}}
+
+    prefill = make_prefill_step(cfg)
+    with torch.no_grad():
+        ref_logits, ref_cache = prefill(params, batch)
+        logits, cache = prefill(placed, put(
+            batch, lambda k, v: shd.batch_spec(k, v.shape, mesh)))
+    res = {"prefill": checks(logits, cache, ref_logits, ref_cache)}
+    outs = {"prefill": whole(logits, cache)}
+
+    # decode from the prefill cache padded by ``pad`` positions
+    padded = {k: (F.pad(v, (0, 0) * (v.ndim - 3) + (0, pad))
+                  if k in ("k", "v", "k_scale", "v_scale") else v)
+              for k, v in ref_cache.items()}
+    ref = map_tree(lambda t: t.clone(), padded)
+    mine = put(map_tree(lambda t: t.clone(), padded),
+               lambda k, v: shd.cache_entry_spec(k, v.shape, mesh))
+    decode = make_decode_step(cfg)
+    for t, toks in enumerate(steps_):
+        toks = torch.from_numpy(toks)
+        with torch.no_grad():
+            ref_logits, ref = decode(params, ref, toks)
+            logits, mine = decode(placed, mine, shd.place(
+                toks, shd.NamedSharding(mesh, shd.batch_spec(
+                    "tokens", toks.shape, mesh))),
+                kv_len=padded["k"].shape[2])
+        res[f"decode{t}"] = checks(logits, mine, ref_logits, ref)
+        outs[f"decode{t}"] = whole(logits, mine)
+    return res, outs
+
+
 def case_serve(rank, world, inp):
     """The sharded prefill and decode steps on a (4, 2) mesh against the
     unsharded ones from the same params (made from seed 0 on every rank):
     the largest |difference| over the largest |value| of each output, and
     each output's placements beside the ones its spec gives."""
-    import torch.nn.functional as F
-
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models.api import get_model
-    from repro_torch.tree import map_tree
 
     mesh = make_host_mesh(2)
     out = {}
@@ -177,52 +241,58 @@ def case_serve(rank, world, inp):
         placed = shd.distribute(params, shd.to_shardings(
             shd.param_specs(params, mesh), mesh))
         batch = {k: torch.from_numpy(v) for k, v in inp["batch"][name].items()}
+        out[name], _ = _serve_run(mesh, cfg, params, placed, batch,
+                                  inp["steps"][name])
+    return out
 
-        def put(tree, spec_of):
-            return {k: shd.place(v, shd.NamedSharding(mesh, spec_of(k, v)))
-                    for k, v in tree.items()}
 
-        def check(got, want):
-            """(max |got - want| / max |want|, placements, spec's)."""
-            full = got.full_tensor()
-            err = float(torch.max(torch.abs(full.double() - want.double()))
-                        / torch.clamp_min(torch.max(torch.abs(
-                            want.double())), 1e-30)) if want.numel() else 0.0
-            return err, tuple(got.placements)
+def case_tp_serve(rank, world, inp):
+    """``tests/test_torch_tp_serve.py``: for each ``model`` size of
+    ``inp["meshes"]``, on a (world / model, model) mesh, each case's
+    prefill and decode steps on the tensor-parallel route from the
+    case's params (numpy), placed by the sharding rules, against the
+    unsharded steps (:func:`_serve_run`).  Also returns the KV cache
+    route each step took (``None``: FSDP), the placements of each cache
+    entry a decode step saw through ``_LayerRows`` (a gather), and on
+    rank 0 for the cases in ``inp["keep"]`` the whole outputs."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps as St
+    from repro_torch.launch.mesh import make_host_mesh
 
-        def checks(logits, cache, want_logits, want_cache):
-            res = {"logits": check(logits, want_logits) + (
-                shd.NamedSharding(mesh, shd.logits_spec(
-                    cfg, want_logits.shape[0], mesh)).placements,)}
-            for k, v in want_cache.items():
-                res[k] = check(cache[k], v) + (shd.NamedSharding(
-                    mesh, shd.cache_entry_spec(k, v.shape, mesh)).placements,)
-            return res
+    contexts, gathered = [], []
+    for_step, layer_rows = St.tp_for_step, St._LayerRows
 
-        prefill = make_prefill_step(cfg)
-        with torch.no_grad():
-            ref_logits, ref_cache = prefill(params, batch)
-            logits, cache = prefill(placed, put(
-                batch, lambda k, v: shd.batch_spec(k, v.shape, mesh)))
-        res = {"prefill": checks(logits, cache, ref_logits, ref_cache)}
+    def counted_for_step(cfg, mesh):
+        contexts.append(for_step(cfg, mesh))
+        return contexts[-1]
 
-        # decode 2 steps from the prefill cache padded by 2 positions
-        pad = {k: (F.pad(v, (0, 0) * (v.ndim - 3) + (0, 2))
-                   if k in ("k", "v") else v) for k, v in ref_cache.items()}
-        ref = map_tree(lambda t: t.clone(), pad)
-        mine = put(map_tree(lambda t: t.clone(), pad),
-                   lambda k, v: shd.cache_entry_spec(k, v.shape, mesh))
-        decode = make_decode_step(cfg)
-        for t, toks in enumerate(inp["steps"][name]):
-            toks = torch.from_numpy(toks)
-            with torch.no_grad():
-                ref_logits, ref = decode(params, ref, toks)
-                logits, mine = decode(placed, mine, shd.place(
-                    toks, shd.NamedSharding(mesh, shd.batch_spec(
-                        "tokens", toks.shape, mesh))),
-                    kv_len=pad["k"].shape[2])
-            res[f"decode{t}"] = checks(logits, mine, ref_logits, ref)
-        out[name] = res
+    class Counted(layer_rows):
+        def __init__(self, placed, mesh, rows):
+            gathered.append(tuple(repr(p) for p in rows))
+            super().__init__(placed, mesh, rows)
+
+    St.tp_for_step, St._LayerRows = counted_for_step, Counted
+    out = {}
+    for mp, named in inp["meshes"].items():
+        mesh = make_host_mesh(mp)
+        for name, case in named.items():
+            cfg = case["cfg"]
+            params = convert.lm_params_from_numpy(case["params"],
+                                                  device="cpu")
+            placed = shd.distribute(params, shd.to_shardings(
+                shd.param_specs(params, mesh), mesh))
+            batch = {k: torch.from_numpy(v) for k, v in
+                     case["batch"].items()}
+            contexts.clear()
+            gathered.clear()
+            res, outs = _serve_run(mesh, cfg, params, placed, batch,
+                                   case["steps"], case["pad"])
+            out[name] = {
+                "checks": res,
+                "routes": [c and c.cache for c in contexts],
+                "heads": [c and c.heads for c in contexts],
+                "gathered": list(gathered),
+                "outs": outs if rank == 0 and name in inp["keep"] else None}
     return out
 
 
@@ -326,7 +396,8 @@ def case_tp(rank, world, inp):
 
 
 CASES = {"cp": case_cp, "ef": case_ef, "pipe": case_pipe, "step": case_step,
-         "restore": case_restore, "serve": case_serve, "tp": case_tp}
+         "restore": case_restore, "serve": case_serve, "tp": case_tp,
+         "tp_serve": case_tp_serve}
 
 
 def main(case, rank, world, d):

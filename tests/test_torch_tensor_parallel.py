@@ -44,11 +44,10 @@ Tolerances, each with its reason:
   ``m`` and ``v`` within rtol 1e-4 and an atol of 1e-4 of the leaf's
   largest |value| (``test_torch_train.py``'s step tolerance), params on
   the well-conditioned set at an atol of 1e-5 of it (the same set and
-  rule as above).  Step 2's moments and params are held to the
-  unsharded step only: JAX's AdamW decays a layer's norm scales and
-  biases (stacked (L, d) leaves, ndim 2), the port's are 1-D and not
-  decayed (ROADMAP section 3), which moves step 2's gradients by ~1e-4.
-  The QAT cases hold JAX's losses only: under ``jit`` XLA rewrites
+  rule as above), every leaf: the port's AdamW decays a layer's 1-D
+  norm scales and biases as JAX decays its stacked (L, d) leaves
+  (``optimizer.decays``).  Step 2's moments and params are held to the
+  unsharded step only.  The QAT cases hold JAX's losses only: under ``jit`` XLA rewrites
   fake-quant's ``absmax / qmax`` into a multiply by the reciprocal, which
   moves ~0.4% of the moments' elements (``test_torch_train.py`` holds
   the port's unsharded QAT step to JAX op by op, ~30 s of compiles);
@@ -208,18 +207,16 @@ def _well_conditioned(v, name):
     return (r == 0) | (r >= 1e-2 * r.max())
 
 
-def _check(mine, want, v1, rtol, atol_frac, where, skip=()):
+def _check(mine, want, v1, rtol, atol_frac, where):
     """Step 1 element by element (params on the well-conditioned set,
     within ``2 * lr`` elsewhere), step 2 within rtol 1e-4 in each leaf's
-    norm; params in ``skip`` are not compared."""
+    norm."""
     lr1 = float(opt.schedule(opt.OptConfig(**LR), torch.tensor(1)))
     for t, (got, ref) in enumerate(zip(mine, want), start=1):
         for key in ("params", "m", "v"):
             for leaf, a in _flat_np(got[key]):
                 w = _get(ref[key], leaf)
                 msg = f"{where}: step {t} {key}{leaf}"
-                if key == "params" and leaf in skip:
-                    continue
                 if t == 2:
                     err = np.linalg.norm(a - w) / max(np.linalg.norm(w),
                                                       1e-30)
@@ -259,13 +256,8 @@ def test_tp_step_against_jax(runs, name):
                                    rtol=1e-4)
     if CASES[name][2] is not None:
         return      # jitted QAT: see the module docstring
-    # JAX stacks a layer's norm scales and biases into (L, d) leaves,
-    # which its AdamW decays (ndim >= 2); the port's are 1-D and not
-    # decayed, with or without a mesh (ROADMAP section 3)
-    per_layer_1d = {leaf for leaf, a in _flat_np(ref["port"]["steps"][0][
-        "params"]) if leaf.startswith("/layers/") and a.ndim == 2}
     _check(ranks[0]["steps"][:1], ref["jax"]["steps"][:1],
-           ref["port"]["steps"][0]["v"], 1e-4, 1e-4, name, per_layer_1d)
+           ref["port"]["steps"][0]["v"], 1e-4, 1e-4, name)
 
 
 #: the model-axis (forward, gradient) placement each case's weights take
