@@ -198,7 +198,12 @@
    ``make_prefill_step`` / ``make_decode_step`` (tensor-parallel on
    placed params) over a bf16 and an INT4 KV cache (16
    ``kv_attention`` a step), logits and cache bit-equal to the
-   unsharded steps, ms a decode step and peak memory of both.  More
+   unsharded steps, ms a decode step and peak memory of both; then the
+   MoE family on the same route, granite-moe-3b-a800m at full width
+   (``_tp_moe``): 3 W4 QAT train steps at full depth against the
+   unsharded step (the olmo case's gates), and its prefill and 32
+   decode steps over bf16 and INT4 KV (32 ``kv_attention`` a step),
+   bit-equal, every router call's experts the unsharded run's.  More
    than one rank on a mesh axis needs more cards: the CPU tests run
    those over gloo.
 
@@ -1826,9 +1831,11 @@ def families_kernel_phase(dev):
     4 x 4 prompt, the uniform decode at M=4); ``kv_attention`` held
     against its plain version and timed at Hymba's (hd 64, 5 query
     heads a KV head, window 1024) and PaliGemma's (hd 256, G 8) served
-    caches.  It runs beside the other kernel phases, before the serving
-    and training phases, after which the profiler misses launches
-    (PERF.md §7).  Returns (rows, errs) for the kernel record."""
+    caches and at granite's (hd 64, G 3, 8 x 1024 positions, 544 live)
+    as the distributed phase's tensor-parallel decode reads it.  It
+    runs beside the other kernel phases, before the serving and
+    training phases, after which the profiler misses launches (PERF.md
+    §7).  Returns (rows, errs) for the kernel record."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -1897,6 +1904,14 @@ def families_kernel_phase(dev):
                ((0, None),))
         else:
             check_served(f"{short} prefills", layers, engine)
+        if short == "granite":
+            # the distributed phase's tensor-parallel decode over INT4 KV:
+            # 8 x 512 prefilled into a 1024-position cache, 32 steps
+            r, err = kv_row(dev, gen, "granite tp", b=8, s_len=1024,
+                            live=512 + 32, h=cfg.n_heads, kh=cfg.n_kv,
+                            hd=cfg.head_dim)
+            rows["kv_attention"]["granite tp decode"] = r
+            errs["kv_attention"] = max(errs["kv_attention"], err)
         del params, layers
         torch.cuda.empty_cache()
 
@@ -3343,18 +3358,122 @@ def _dp_serve(dev, model, images, data_parallel):
     return launches, logits, len(images) / wall, eng
 
 
-def _tp_serve(dev, card, mesh):
-    """The tensor-parallel serve steps on the (1, 1) mesh: olmo-1b at full
-    width (16 layers, d 2048, bf16 params), a prefill of 8 x 512 tokens
-    padded to 1024 and 32 decode steps of ``make_prefill_step`` /
-    ``make_decode_step`` (their tensor-parallel route) on params placed by
-    ``to_shardings``, once over a bf16 KV cache and once over an INT4 one,
-    against the unsharded ``prefill`` / ``decode_step`` from the same
-    params, fed the same (greedy) tokens: logits and cache bit-equal (on
-    one rank the KV-head split is the unsharded arithmetic), the route's
-    contexts asserted (one a step, cache split by KV heads), 16
-    ``kv_attention`` launches a step on the INT4 route; ms a decode step
-    and peak memory of both.  Returns the INT4 route's decode launches."""
+def _train_run(cfg, ocfg, mesh, params, placed, batches, accum=1):
+    """``len(batches)`` steps of ``make_train_step(tensor_parallel=True)``
+    from ``params`` (placed on ``mesh``, or not: the unsharded step):
+    (params, losses, seconds a step, peak GiB)."""
+    import torch
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.train import optimizer as opt
+
+    step = make_train_step(cfg, ocfg, accum, tensor_parallel=True)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for b in batches:
+        if placed:
+            b = {k: shd.place(v, shd.NamedSharding(
+                mesh, shd.batch_spec(k, v.shape, mesh)))
+                for k, v in b.items()}
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    return params, losses, times, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _agree(params, ref):
+    """(share of bit-equal elements, max |diff| over the leaf's max
+    |value|) of ``params`` (placed or not) against ``ref``."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import leaves
+
+    eq = n = 0
+    worst = 0.0
+    for a, b in zip(leaves(params), leaves(ref)):
+        a = a.full_tensor() if isinstance(a, DTensor) else a
+        a, b = a.detach(), b.detach()
+        eq += int(torch.sum(a == b))
+        n += b.numel()
+        worst = max(worst, float(torch.max(torch.abs(
+            a.float() - b.float())) / torch.max(torch.abs(
+                b.float())).clamp_min(1e-30)))
+    return eq / n, worst
+
+
+def _tp_train_vs_unsharded(dev, mesh, cfg, ocfg, batches, contexts):
+    """The tensor-parallel train step on params placed on ``mesh`` against
+    the unsharded step from the same initial params (seed 0), and a
+    second unsharded run (the embedding's backward, an ``index_put``
+    with ``accumulate``, and the MoE dispatch's are atomic on the card:
+    no two runs are bit-equal): losses within rtol 1e-5, params within
+    1e-2 of the leaf's largest |value| (asserted); ``contexts`` (the
+    wrapped ``tp_for_step``'s list) one a step.  Returns (the unsharded
+    run's params, the placed run's, a dict of figures)."""
+    import numpy as np
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import transformer
+    from repro_torch.tree import leaves, map_tree
+
+    ref = transformer.init(0, cfg, device=dev)
+    sharded = shd.distribute(
+        map_tree(lambda t: t.clone(), ref),
+        shd.to_shardings(shd.param_specs(ref, mesh), mesh))
+    contexts.clear()
+    ref, ref_l, ref_t, ref_mem = _train_run(cfg, ocfg, mesh, ref, False,
+                                            batches)
+    if contexts:
+        raise AssertionError("the unsharded step made a TP context")
+    sharded, sh_l, sh_t, sh_mem = _train_run(cfg, ocfg, mesh, sharded, True,
+                                             batches)
+    if not isinstance(leaves(sharded)[0], DTensor):
+        raise AssertionError("the sharded step dropped the placements")
+    if len(contexts) != len(batches) or None in contexts:
+        raise AssertionError(f"{cfg.name}: the sharded step took the FSDP "
+                             f"route: {contexts}")
+    again = transformer.init(0, cfg, device=dev)
+    again, again_l, _, _ = _train_run(cfg, ocfg, mesh, again, False,
+                                      batches)
+    sh_eq, sh_worst = _agree(sharded, ref)
+    re_eq, re_worst = _agree(again, ref)
+    del again
+    if not np.allclose(sh_l, ref_l, rtol=1e-5, atol=0) or sh_worst > 1e-2:
+        raise AssertionError(f"{cfg.name} sharded step: losses {sh_l} vs "
+                             f"unsharded {ref_l}; params max diff "
+                             f"{sh_worst:.3e} of the leaf's largest")
+    ms = lambda ts: ", ".join(f"{t * 1e3:.1f}" for t in ts)
+    loss = lambda ls: ", ".join(f"{x:.6f}" for x in ls)
+    return ref, sharded, (
+        f"losses {loss(sh_l)} vs {loss(ref_l)} (a second unsharded run: "
+        f"{loss(again_l)}); params after {len(batches)} steps bit-equal at "
+        f"{sh_eq:.6f} of elements, max diff {sh_worst:.3e} of the leaf's "
+        f"largest (second unsharded run: {re_eq:.6f}, {re_worst:.3e}); ms "
+        f"a step (first step warm) sharded {ms(sh_t)}, unsharded "
+        f"{ms(ref_t)}; peak {sh_mem:.2f} / {ref_mem:.2f} GiB")
+
+
+def _tp_serve(dev, card, mesh, arch, layers=None):
+    """The tensor-parallel serve steps on the (1, 1) mesh: ``arch`` at
+    full width (bf16 params; ``layers`` deep, default its own depth), a
+    prefill of 8 x 512 tokens padded to 1024 and 32 decode steps of
+    ``make_prefill_step`` / ``make_decode_step`` (their tensor-parallel
+    route) on params placed by ``to_shardings``, once over a bf16 KV
+    cache and once over an INT4 one, against the unsharded ``prefill`` /
+    ``decode_step`` from the same params, fed the same (greedy) tokens:
+    logits and cache bit-equal (on one rank the KV-head split is the
+    unsharded arithmetic), the route's contexts asserted (one a step,
+    cache split by KV heads), ``n_layers`` ``kv_attention`` launches a
+    step on the INT4 route, and for a MoE config every router call's
+    top-k experts equal to the unsharded run's; ms a decode step and
+    peak memory of both.  Returns (the INT4 route's decode launches
+    under ``"dist tp <arch> int4-kv"``, the last context)."""
     import dataclasses
 
     import numpy as np
@@ -3365,20 +3484,29 @@ def _tp_serve(dev, card, mesh):
     from repro_torch.distributed import sharding as shd
     from repro_torch.kernels.kv_attention import ops as kv_ops
     from repro_torch.launch import steps as St
+    from repro_torch.models import moe as MOE
     from repro_torch.models import transformer
 
-    base = get_config("olmo-1b")
+    base = get_config(arch)
+    if layers is not None:
+        base = dataclasses.replace(base, n_layers=layers)
     params = transformer.init(0, base, device=dev)
     placed = shd.distribute(params, shd.to_shardings(
         shd.param_specs(params, mesh), mesh))
     b, s_len, max_len, n_steps = 8, 512, 1024, 32
     toks = torch.as_tensor(np.random.default_rng(2).integers(
         0, base.vocab, (b, s_len)), dtype=torch.int64, device=dev)
-    contexts, for_step = [], St.tp_for_step
+    contexts, for_step, router = [], St.tp_for_step, MOE._router
+    routed = []
 
     def counted_for_step(c, m):
         contexts.append(for_step(c, m))
         return contexts[-1]
+
+    def recorded_router(p, x, c):
+        out = router(p, x, c)
+        routed.append(out[1])
+        return out
 
     def put(t, spec_of):
         return shd.place(t, shd.NamedSharding(mesh, spec_of(t.shape)))
@@ -3390,7 +3518,8 @@ def _tp_serve(dev, card, mesh):
         """(logits of the prefill and each step, the tokens fed, the
         prefill's and the last step's cache, decode ms a step, peak GiB
         over what was allocated before, kv_attention launches of the
-        decode steps)."""
+        decode steps, the router calls' top-k experts)."""
+        routed.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
@@ -3426,10 +3555,10 @@ def _tp_serve(dev, card, mesh):
             launches = kv_ops.quant_kv_decode_attention.launches
         return (out, fed, pre, {k: whole(v) for k, v in cache.items()}, ms,
                 (torch.cuda.max_memory_allocated() - before) / 2 ** 30,
-                launches)
+                launches, list(routed))
 
     runs = {}
-    St.tp_for_step = counted_for_step
+    St.tp_for_step, MOE._router = counted_for_step, recorded_router
     try:
         for bits in (16, 4):
             cfg = dataclasses.replace(base, kv_cache_bits=bits)
@@ -3437,55 +3566,124 @@ def _tp_serve(dev, card, mesh):
             contexts.clear()
             mine = run(cfg, True, ref[1])
             routes = [c and c.cache for c in contexts]
+            label = f"tensor-parallel serve {arch} (KV {bits})"
             if routes != ["heads"] * (1 + n_steps):
-                raise AssertionError(f"tensor-parallel serve (KV {bits}): "
-                                     f"routes {routes}")
+                raise AssertionError(f"{label}: routes {routes}")
             same = (all(torch.equal(a, w) for a, w in zip(mine[0], ref[0]))
                     and all(torch.equal(mine[k][key], ref[k][key])
                             for k in (2, 3) for key in ref[k]))
             if not same:
-                raise AssertionError(f"tensor-parallel serve (KV {bits}): "
-                                     f"logits or cache differ from the "
-                                     f"unsharded steps")
+                raise AssertionError(f"{label}: logits or cache differ "
+                                     f"from the unsharded steps")
             want = cfg.n_layers * n_steps if bits != 16 else 0
             if mine[6] != want or ref[6] != want:
-                raise AssertionError(f"tensor-parallel serve (KV {bits}): "
-                                     f"kv_attention launches {mine[6]} "
-                                     f"(unsharded {ref[6]}), expected "
-                                     f"{want}")
+                raise AssertionError(f"{label}: kv_attention launches "
+                                     f"{mine[6]} (unsharded {ref[6]}), "
+                                     f"expected {want}")
+            if len(mine[7]) != len(ref[7]) or not all(
+                    torch.equal(a, w) for a, w in zip(mine[7], ref[7])):
+                raise AssertionError(f"{label}: the routed experts differ "
+                                     f"from the unsharded run's")
             if bits != 16:
-                runs["dist tp int4-kv"] = {"kv_attention": mine[6]}
+                runs[f"dist tp {arch} int4-kv"] = {"kv_attention": mine[6]}
             kv = "bf16" if bits == 16 else "INT4"
-            print(f"distributed: olmo-1b full width ({cfg.n_layers} "
+            experts = (f", {len(mine[7])} router calls' top-"
+                       f"{cfg.moe.top_k} experts equal, "
+                       f"experts split {contexts[-1].experts}"
+                       if cfg.moe else "")
+            print(f"distributed: {arch} full width ({cfg.n_layers} "
                   f"layers, d {cfg.d_model}, {cfg.dtype} params), "
                   f"{kv} KV cache, prefill {b} x {s_len} padded to "
                   f"{max_len} and {n_steps} decode steps of "
                   f"make_prefill_step / make_decode_step (tensor-parallel) "
                   f"on the (1, 1) mesh vs the unsharded steps "
                   f"[{card}]: route {routes[0]} ({len(routes)} contexts), "
-                  f"logits and cache bit-equal, kv_attention launches "
-                  f"{mine[6]} ({mine[6] // n_steps} a step); ms a decode "
-                  f"step {mine[4]:.2f} vs {ref[4]:.2f} unsharded; peak "
-                  f"over the memory held before {mine[5]:.2f} / "
+                  f"logits and cache bit-equal{experts}, kv_attention "
+                  f"launches {mine[6]} ({mine[6] // n_steps} a step); ms a "
+                  f"decode step {mine[4]:.2f} vs {ref[4]:.2f} unsharded; "
+                  f"peak over the memory held before {mine[5]:.2f} / "
                   f"{ref[5]:.2f} GiB", flush=True)
             del ref, mine
             torch.cuda.empty_cache()
     finally:
-        St.tp_for_step = for_step
-    # what a collective of the route costs on the one-rank group: a
-    # decode step makes 2 all-reduces a layer and one for the embedding
-    x = torch.zeros((b, 1, base.d_model), dtype=torch.bfloat16, device=dev)
-    contexts[-1].all_reduce(x)
+        St.tp_for_step, MOE._router = for_step, router
+    return runs, contexts[-1]
+
+
+def _time_all_reduce(dev, card, ctx, shape):
+    """ms of one all-reduce of a bf16 activation of ``shape`` over the
+    context's one-rank NCCL ``model`` group, over 100 calls."""
+    import torch
+
+    x = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    ctx.all_reduce(x)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(100):
-        contexts[-1].all_reduce(x)
+        ctx.all_reduce(x)
     torch.cuda.synchronize()
-    print(f"distributed: one all-reduce of the route's ({b}, 1, "
-          f"{base.d_model}) bf16 activation over the one-rank NCCL "
-          f"'model' group: {(time.perf_counter() - t0) * 10:.3f} ms a "
-          f"call, host to device done, over 100 calls [{card}]",
-          flush=True)
+    print(f"distributed: one all-reduce of the route's {tuple(shape)} bf16 "
+          f"activation over the one-rank NCCL 'model' group: "
+          f"{(time.perf_counter() - t0) * 10:.3f} ms a call, host to "
+          f"device done, over 100 calls [{card}]", flush=True)
+
+
+def _tp_moe(dev, card, mesh):
+    """The MoE family on the tensor-parallel route, on the (1, 1) mesh:
+    granite-moe-3b-a800m at full width (d 1536, 24 heads, 8 KV heads, 40
+    experts top-8, ``d_ff_expert`` 512, vocab 49155, bf16):
+
+    1. 3 steps of ``make_train_step(tensor_parallel=True)`` at full
+       depth (32 layers: with the three param copies the comparison
+       keeps, the float32 gradients and AdamW moments and QAT's saved
+       weights, ~60 GB of the card's 80), W4 QAT (the experts' ``wo``
+       through ``fake_quant_rows``), batch 8 x 128, against 3 unsharded
+       steps and a second unsharded run under the olmo-1b case's gates
+       (:func:`_tp_train_vs_unsharded`): the context made once a step
+       with the experts split;
+    2. the tensor-parallel prefill and decode steps over a bf16 and an
+       INT4 KV cache (:func:`_tp_serve`): bit-equal, 32
+       ``kv_attention`` launches a step on the INT4 route, every router
+       call's experts the unsharded run's.
+
+    Returns the INT4 route's decode launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as St
+    from repro_torch.quant.formats import PrecisionConfig
+    from repro_torch.train.trainer import TrainConfig
+
+    cfg = dataclasses.replace(
+        get_config("granite-moe-3b-a800m"),
+        precision=PrecisionConfig(bits=4, group_size=-1))
+    contexts, for_step = [], St.tp_for_step
+
+    def counted_for_step(c, m):
+        contexts.append(for_step(c, m))
+        return contexts[-1]
+
+    St.tp_for_step = counted_for_step
+    try:
+        batches = [_lm_batch(cfg, 8, 128, i, dev) for i in range(3)]
+        ref, sharded, figures = _tp_train_vs_unsharded(
+            dev, mesh, cfg, TrainConfig().opt, batches, contexts)
+    finally:
+        St.tp_for_step = for_step
+    if not all(c.experts for c in contexts):
+        raise AssertionError("granite train: the experts did not split")
+    del ref, sharded
+    torch.cuda.empty_cache()
+    print(f"distributed: granite-moe-3b-a800m full width and depth "
+          f"({cfg.n_layers} layers, {cfg.dtype}, W4 QAT), batch 8 x 128, "
+          f"3 steps on params placed by to_shardings on the (1, 1) mesh vs "
+          f"unsharded [{card}]: {figures}; route tensor-parallel "
+          f"({len(contexts)} contexts: heads {contexts[-1].heads}, kv "
+          f"{contexts[-1].kv}, experts {contexts[-1].experts}, vocab "
+          f"{contexts[-1].vocab})", flush=True)
+    runs, _ = _tp_serve(dev, card, mesh, "granite-moe-3b-a800m")
     return runs
 
 
@@ -3518,7 +3716,10 @@ def distributed_phase(dev, card):
        logits bit-equal, the same launch counts, images/s of both;
     6. the tensor-parallel prefill and decode steps of olmo-1b over a
        bf16 and an INT4 KV cache against the unsharded ones, bit-equal
-       (:func:`_tp_serve`).
+       (:func:`_tp_serve`), and the ms of one all-reduce on the route;
+    7. the MoE family on the route: granite-moe-3b-a800m's train, prefill
+       and decode steps against the unsharded ones (:func:`_tp_moe`),
+       with the seconds they took.
 
     The group is destroyed at the end.  Returns the data-parallel serve
     runs' launches and the INT4 tensor-parallel decode steps'."""
@@ -3537,13 +3738,10 @@ def distributed_phase(dev, card):
     from repro_torch.distributed.checkpoint import CheckpointManager
     from repro_torch.launch import steps as St
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.steps import make_train_step
     from repro_torch.models import snn_cnn, transformer
     from repro_torch.quant.formats import PrecisionConfig
-    from repro_torch.train import optimizer as opt
     from repro_torch.train.trainer import TrainConfig
     from repro_torch.tree import leaves, map_tree, unflatten_like
-    from torch.distributed.tensor import DTensor
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
@@ -3570,81 +3768,13 @@ def distributed_phase(dev, card):
 
         St.tp_for_step = counted_for_step
         batches = [_lm_batch(cfg, 8, 128, i, dev) for i in range(3)]
-        ref = transformer.init(0, cfg, device=dev)
-        sharded = shd.distribute(
-            map_tree(lambda t: t.clone(), ref),
-            shd.to_shardings(shd.param_specs(ref, mesh), mesh))
-
-        def run(params, placed, accum=1, feed=batches):
-            step = make_train_step(cfg, ocfg, accum, tensor_parallel=True)
-            state = opt.init(params)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            losses, times = [], []
-            for b in feed:
-                if placed:
-                    b = {k: shd.place(v, shd.NamedSharding(
-                        mesh, shd.batch_spec(k, v.shape, mesh)))
-                        for k, v in b.items()}
-                t0 = time.perf_counter()
-                params, state, m = step(params, state, b)
-                losses.append(float(m["loss"]))
-                times.append(time.perf_counter() - t0)
-            return (params, losses, times,
-                    torch.cuda.max_memory_allocated() / 2 ** 30)
-
-        ref, ref_l, ref_t, ref_mem = run(ref, False)
-        if contexts:
-            raise AssertionError("the unsharded step made a TP context")
-        sharded, sh_l, sh_t, sh_mem = run(sharded, True)
-        if not isinstance(leaves(sharded)[0], DTensor):
-            raise AssertionError("the sharded step dropped the placements")
-        if len(contexts) != len(batches) or None in contexts:
-            raise AssertionError(f"the sharded step took the FSDP route: "
-                                 f"{contexts}")
-        # the embedding's backward (an index_put with accumulate, atomic
-        # on the card) is not bit-reproducible: a second unsharded run
-        # from the same params shows the run-to-run floor
-        again = transformer.init(0, cfg, device=dev)
-        again, again_l, _, _ = run(again, False)
-
-        def agree(params, ref=ref):
-            """(share of bit-equal elements, max |diff| over the leaf's
-            max |value|) against the first unsharded run."""
-            eq = n = 0
-            worst = 0.0
-            for a, b in zip(leaves(params), leaves(ref)):
-                a = a.full_tensor() if isinstance(a, DTensor) else a
-                a, b = a.detach(), b.detach()
-                eq += int(torch.sum(a == b))
-                n += b.numel()
-                worst = max(worst, float(torch.max(torch.abs(
-                    a.float() - b.float())) / torch.max(torch.abs(
-                        b.float())).clamp_min(1e-30)))
-            return eq / n, worst
-
-        sh_eq, sh_worst = agree(sharded)
-        re_eq, re_worst = agree(again)
-        del again
-        if not np.allclose(sh_l, ref_l, rtol=1e-5, atol=0) or \
-                sh_worst > 1e-2:
-            raise AssertionError(f"sharded step: losses {sh_l} vs "
-                                 f"unsharded {ref_l}; params max diff "
-                                 f"{sh_worst:.3e} of the leaf's largest")
-        ms = lambda ts: ", ".join(f"{t * 1e3:.1f}" for t in ts)
+        ref, sharded, figures = _tp_train_vs_unsharded(
+            dev, mesh, cfg, ocfg, batches, contexts)
         print(f"distributed: olmo-1b full width ({cfg.n_layers} layers, "
               f"{cfg.dtype}, W4 QAT), batch 8 x 128, 3 steps on params placed by "
               f"to_shardings on the (1, 1) mesh vs unsharded [{card}]: "
-              f"losses {', '.join(f'{x:.6f}' for x in sh_l)} vs "
-              f"{', '.join(f'{x:.6f}' for x in ref_l)} (a second unsharded "
-              f"run: {', '.join(f'{x:.6f}' for x in again_l)}); params "
-              f"after 3 steps bit-equal at {sh_eq:.6f} of elements, max "
-              f"diff {sh_worst:.3e} of the leaf's largest (second "
-              f"unsharded run: {re_eq:.6f}, {re_worst:.3e}); ms a step "
-              f"(first step warm) sharded {ms(sh_t)}, unsharded "
-              f"{ms(ref_t)}; peak {sh_mem:.2f} / {ref_mem:.2f} GiB; "
-              f"route tensor-parallel ({len(contexts)} contexts: heads "
-              f"{contexts[-1].heads}, kv {contexts[-1].kv}, mlp "
+              f"{figures}; route tensor-parallel ({len(contexts)} contexts: "
+              f"heads {contexts[-1].heads}, kv {contexts[-1].kv}, mlp "
               f"{contexts[-1].mlp}, vocab {contexts[-1].vocab})",
               flush=True)
 
@@ -3653,11 +3783,11 @@ def distributed_phase(dev, card):
         acc_sh = shd.distribute(
             map_tree(lambda t: t.clone(), acc_ref),
             shd.to_shardings(shd.param_specs(acc_ref, mesh), mesh))
-        acc_ref, acc_ref_l, acc_ref_t, acc_ref_mem = run(
-            acc_ref, False, 2, batches[:1])
-        acc_sh, acc_sh_l, acc_sh_t, acc_sh_mem = run(acc_sh, True, 2,
-                                                     batches[:1])
-        acc_eq, acc_worst = agree(acc_sh, acc_ref)
+        acc_ref, acc_ref_l, acc_ref_t, acc_ref_mem = _train_run(
+            cfg, ocfg, mesh, acc_ref, False, batches[:1], 2)
+        acc_sh, acc_sh_l, acc_sh_t, acc_sh_mem = _train_run(
+            cfg, ocfg, mesh, acc_sh, True, batches[:1], 2)
+        acc_eq, acc_worst = _agree(acc_sh, acc_ref)
         del acc_ref, acc_sh
         torch.cuda.empty_cache()
         if not np.allclose(acc_sh_l, acc_ref_l, rtol=1e-5, atol=0) or \
@@ -3665,6 +3795,7 @@ def distributed_phase(dev, card):
             raise AssertionError(f"grad_accum=2 on the mesh: loss "
                                  f"{acc_sh_l} vs unsharded {acc_ref_l}; "
                                  f"params max diff {acc_worst:.3e}")
+        ms = lambda ts: ", ".join(f"{t * 1e3:.1f}" for t in ts)
         print(f"distributed: olmo-1b full width, W4 QAT, one grad_accum=2 "
               f"step (2 microbatches of 4 x 128) on the (1, 1) mesh, "
               f"tensor-parallel, vs unsharded grad_accum=2 [{card}]: loss "
@@ -3765,7 +3896,17 @@ def distributed_phase(dev, card):
                   f"{r0:.1f} images/s [{card}]", flush=True)
 
         # 6. the tensor-parallel serve steps
-        runs.update(_tp_serve(dev, card, mesh))
+        tp_runs, ctx = _tp_serve(dev, card, mesh, "olmo-1b")
+        runs.update(tp_runs)
+        # a decode step makes 2 all-reduces a layer and one for the
+        # embedding
+        _time_all_reduce(dev, card, ctx, (8, 1, cfg.d_model))
+
+        # 7. the MoE family on the route: granite-moe-3b-a800m
+        t_moe = time.perf_counter()
+        runs.update(_tp_moe(dev, card, mesh))
+        print(f"distributed: the MoE steps {time.perf_counter() - t_moe:.1f} "
+              f"s", flush=True)
     finally:
         St.tp_for_step = tp_for_step
         dist.destroy_process_group()
@@ -4173,7 +4314,9 @@ def main() -> int:
                          "kv_attention": ["decode"] * 16},
         # the distributed phase's tensor-parallel decode steps (float
         # linears): the same cache geometry as olmo int4-kv's
-        "dist tp int4-kv": {"kv_attention": ["decode"] * 16},
+        "dist tp olmo-1b int4-kv": {"kv_attention": ["decode"] * 16},
+        "dist tp granite-moe-3b-a800m int4-kv": {
+            "kv_attention": ["granite tp decode"] * 32},
         # the serve phase's 16 prefills (36-251 tokens at seed 0; those
         # under 64 tokens take the gemv variant), the uniform 8 x 512 one
         "olmo serve prefill": {"packed_qmatmul": [
@@ -4277,7 +4420,8 @@ def main() -> int:
           "runs, their prefills counted apart; packed_qmatmul also one "
           "decode layer of each family at M=8, kv_attention also Hymba's "
           "and PaliGemma's INT4 caches and the distributed phase's 32 "
-          "tensor-parallel olmo-1b decode steps over INT4 KV); "
+          "tensor-parallel olmo-1b and granite-moe decode steps over INT4 "
+          "KV, granite's at its own geometry); "
           "paths gives each path's launches and its kernel ms per B=8 "
           "forward (NCE: per step of each geometry; olmo and the families: "
           "per decode step, per INT4-KV prefill, and over the serve "

@@ -1,5 +1,6 @@
 """Tensor-parallel compute over a mesh's ``model`` axis, for the sharded
-train, prefill and decode steps of the dense transformer families.
+train, prefill and decode steps of the dense, VLM and MoE transformer
+families.
 
 JAX pjits its steps onto ``sharding.py``'s specs, and XLA's partitioner
 splits the compute where a spec names ``model``.  The port has no
@@ -11,13 +12,14 @@ the serve steps add where the KV cache lies (:attr:`TensorParallel.cache`).
 
 Routes, by ``cfg.family`` (:func:`for_step`):
 
-* ``"dense"`` (olmo-1b, stablelm-1.6b, gemma2-2b, internlm2-20b) and
-  ``"vlm"`` (paligemma-3b's text decoder and ``vision_proj``) take the
-  tensor-parallel route below;
-* the MoE, SSM, hybrid and audio families (granite-moe, moonshot,
-  mamba2, hymba, whisper) and any mesh without a ``model`` axis take
-  the FSDP route: every param gathered whole, the whole loss on every
-  rank.
+* ``"dense"`` (olmo-1b, stablelm-1.6b, gemma2-2b, internlm2-20b),
+  ``"vlm"`` (paligemma-3b's text decoder and ``vision_proj``) and
+  ``"moe"`` (granite-moe-3b-a800m, moonshot-v1-16b-a3b: the attention,
+  embedding and head as the dense families', the MoE block below) take
+  the tensor-parallel route below;
+* the SSM, hybrid and audio families (mamba2, hymba, whisper) and any
+  mesh without a ``model`` axis take the FSDP route: every param
+  gathered whole, the whole loss on every rank.
 
 On the tensor-parallel route each param is gathered over the batch's
 mesh dims only and keeps the ``model`` split of :meth:`placements`:
@@ -41,11 +43,19 @@ mesh dims only and keeps the ``model`` split of :meth:`placements`:
 * the embedding is split on the vocab: each rank looks up the tokens of
   its range and ``reduce_out`` sums the rows (:meth:`embed`); the
   logits stay split and :meth:`cross_entropy` reduces the max, the sum
-  of exponentials and the target's logit over ``model``.
+  of exponentials and the target's logit over ``model``;
+* the MoE block (``models/moe.py``, ``tp=``) splits each stacked expert
+  on ``d_ff_expert`` (``mlp/w[ig]`` ``(E, d, f)`` on ``f``, ``mlp/wo``
+  ``(E, f, d)`` on ``f``: Megatron's MLP split once an expert) and the
+  shared experts as a dense MLP; the router stays replicated and runs on
+  the replicated input, so every rank routes the same; one
+  ``reduce_out`` a layer sums the gate-combined partial outputs, the
+  shared experts' included.  The expert ``wo``'s fake-quant groups run
+  along the split ``f``: :meth:`fake_quant_rows`' rule.
 
-A part whose dim does not divide ``model`` (``d_ff``, the vocab,
-``d_model`` for ``vision_proj``) runs whole on every rank.  Every
-``model`` rank of a data group sees the same rows, so a gradient is
+A part whose dim does not divide ``model`` (``d_ff``, ``d_ff_expert``,
+the vocab, ``d_model`` for ``vision_proj``) runs whole on every rank.
+Every ``model`` rank of a data group sees the same rows, so a gradient is
 summed over the batch's mesh dims only: a split param's gradient is its
 own slice, a param run whole has the same gradient on every ``model``
 rank, and ``wk``/``wv`` gathered for their KV heads have partial sums
@@ -95,6 +105,10 @@ _SPLITS = [
     (r"attn/wo/w$", "heads", 0),
     (r"mlp/w[ig]/w$", "mlp", 1),
     (r"mlp/wo/w$", "mlp", 0),
+    (r"mlp/w[ig]$", "experts", 2),           # stacked (E, d, f)
+    (r"mlp/wo$", "experts", 1),              # stacked (E, f, d)
+    (r"mlp/shared_w[ig]$", "shared", 1),
+    (r"mlp/shared_wo$", "shared", 0),
 ]
 
 
@@ -130,6 +144,41 @@ class _ReduceOut(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _SumOver(torch.autograd.Function):
+    """All-reduce forward and backward: a sum over a group whose every
+    rank's loss depends on the sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, "sum", ctx.group), None
+
+
+def mean_over(mesh, dims):
+    """``t -> `` the mean of ``t`` over the ranks of ``mesh``'s dims
+    ``dims`` (those a batch is split on, evenly): ``t`` is the mean over
+    the rank's rows, the result the mean over the global batch.  Its
+    gradient sums every rank's, as each rank's loss holds the mean.
+    ``None`` where the dims hold one rank."""
+    groups = [mesh.get_group(i) for i in dims if mesh.size(i) > 1]
+    if not groups:
+        return None
+    n = 1
+    for i in dims:
+        n *= mesh.size(i)
+
+    def mean(t):
+        for g in groups:
+            t = _SumOver.apply(t, g)
+        return t / n
+
+    return mean
 
 
 class _GatherLast(torch.autograd.Function):
@@ -173,14 +222,16 @@ class _VocabLogSumExp(torch.autograd.Function):
 
 
 class TensorParallel:
-    """The ``model`` axis of ``mesh`` and how ``cfg``'s dense layers split
-    over it.  Flags: ``heads`` (query heads split), ``kv`` (KV heads
-    split with them), ``mlp`` (``d_ff`` split), ``vocab``, ``vision``
-    (``vision_proj``'s outputs split).  :meth:`on` gives the context for
-    a part that splits, else ``None``.  ``cache``: where a serve step's
-    KV cache splits over ``model`` (``"heads"``, ``"seq"`` or
-    ``"whole"``; module docstring), which the step sets; ``None`` in the
-    train step."""
+    """The ``model`` axis of ``mesh`` and how ``cfg``'s layers split over
+    it.  Flags: ``heads`` (query heads split), ``kv`` (KV heads split
+    with them), ``mlp`` (a dense FFN's ``d_ff`` split), ``experts`` (the
+    stacked experts' ``d_ff_expert`` split), ``shared`` (the shared
+    experts' ``d_ff_expert * n_shared_experts`` split), ``vocab``,
+    ``vision`` (``vision_proj``'s outputs split).  :meth:`on` gives the
+    context for a part that splits, else ``None``.  ``cache``: where a
+    serve step's KV cache splits over ``model`` (``"heads"``, ``"seq"``
+    or ``"whole"``; module docstring), which the step sets; ``None`` in
+    the train step."""
 
     def __init__(self, cfg, mesh):
         self.group = mesh.get_group("model")
@@ -189,7 +240,11 @@ class TensorParallel:
         m = self.size
         self.heads = cfg.n_heads % m == 0
         self.kv = self.heads and cfg.n_kv % m == 0
-        self.mlp = cfg.d_ff > 0 and cfg.d_ff % m == 0
+        moe = cfg.moe
+        self.mlp = moe is None and cfg.d_ff > 0 and cfg.d_ff % m == 0
+        self.experts = moe is not None and moe.d_ff_expert % m == 0
+        self.shared = moe is not None and moe.n_shared_experts > 0 and \
+            moe.d_ff_expert * moe.n_shared_experts % m == 0
         self.vocab = cfg.vocab % m == 0
         self.vision = bool(cfg.vision_prefix_len) and cfg.d_model % m == 0
         self.head_dim = cfg.head_dim
@@ -307,26 +362,29 @@ class TensorParallel:
         return self.expand_kv(t[:, :, lo:hi])
 
     def fake_quant_rows(self, w: torch.Tensor, pc) -> torch.Tensor:
-        """``fake_quant(W.T).T`` of a row-parallel ``W`` (``d_in`` split):
+        """``fake_quant(W^T)^T`` (the last two dims swapped) of a
+        row-parallel ``W`` ``(..., d_in, d_out)`` with ``d_in`` split
+        (a linear's ``wo``, or the stacked experts' ``(E, f, d)``):
         the group rule is decided on the whole ``d_in``; a per-channel
         absmax is the max over ``model``; groups that straddle shards
         are quantized on the gathered contraction."""
-        wt = w.T
+        wt = w.transpose(-1, -2)
         n_loc = wt.shape[-1]
         n = n_loc * self.size
         gs = n if pc.group_size == -1 else pc.group_size
         if n % gs:
             gs = n
         if gs < n and n_loc % gs == 0:
-            return fake_quant(wt, pc).T
+            return fake_quant(wt, pc).transpose(-1, -2)
         if gs < n:
             lo = self.rank * n_loc
-            return fake_quant(self.gather_last(wt), pc)[..., lo:lo + n_loc].T
+            return fake_quant(self.gather_last(wt), pc)[
+                ..., lo:lo + n_loc].transpose(-1, -2)
         absmax = _all_reduce(torch.amax(torch.abs(wt), dim=-1, keepdim=True)
                              .detach(), "max", self.group)
         scale = torch.clamp_min(absmax / pc.qmax, 1e-8)
         q = _ClipRoundSTE.apply(wt / scale, pc.qmin, pc.qmax)
-        return (q * scale).T
+        return (q * scale).transpose(-1, -2)
 
     def embed(self, table: torch.Tensor, tokens: torch.Tensor
               ) -> torch.Tensor:
@@ -358,9 +416,9 @@ class TensorParallel:
 
 def for_step(cfg, mesh) -> Optional[TensorParallel]:
     """A step's context on ``mesh``, or ``None`` for the FSDP route (the
-    families outside ``"dense"``/``"vlm"``, a MoE or hybrid config, a
+    families outside ``"dense"``/``"vlm"``/``"moe"``, a hybrid config, a
     mesh without a ``model`` axis)."""
-    if (cfg.family not in ("dense", "vlm") or cfg.moe is not None
+    if (cfg.family not in ("dense", "vlm", "moe")
             or cfg.hybrid_parallel_ssm
             or "model" not in (mesh.mesh_dim_names or ())):
         return None

@@ -9,21 +9,24 @@ mesh (DTensors, ``distributed.sharding.distribute``): the counterpart of
 JAX's pjit'd step, on one of two routes (:func:`_sharded_value_and_grad`):
 
 * tensor-parallel (``make_train_step(tensor_parallel=True)``, which the
-  dry run and ``chip_smoke.py`` ask for), for the ``"dense"`` and
-  ``"vlm"`` families (olmo-1b, stablelm-1.6b, gemma2-2b, internlm2-20b,
-  paligemma-3b): each param is gathered over the batch's mesh dims and
-  keeps its ``model`` split, and the loss runs on the rank's shards
-  through ``distributed.tensor_parallel`` (column/row-parallel linears,
-  head-split attention, vocab-split embedding and cross-entropy), as
-  XLA's partitioner splits JAX's step;
-* FSDP, for the MoE, SSM, hybrid and audio families (granite-moe,
-  moonshot, mamba2, hymba, whisper), meshes without ``model`` and every
-  family without ``tensor_parallel=True``: each param is gathered whole
-  and the whole loss runs on every rank, so every rank's forward is the
-  unsharded step's, bit for bit, on its rows.  A split contraction
-  rounds otherwise: on a (1, 1) mesh the two routes are bit-equal, on a
-  split ``model`` axis they differ by float32 rounding, as a float64
-  step differs from a float32 one.
+  dry run and ``chip_smoke.py`` ask for), for the ``"dense"``, ``"vlm"``
+  and ``"moe"`` families (olmo-1b, stablelm-1.6b, gemma2-2b,
+  internlm2-20b, paligemma-3b, granite-moe-3b-a800m,
+  moonshot-v1-16b-a3b): each param is gathered over the batch's mesh
+  dims and keeps its ``model`` split, and the loss runs on the rank's
+  shards through ``distributed.tensor_parallel`` (column/row-parallel
+  linears, head-split attention, experts split on ``d_ff_expert``,
+  vocab-split embedding and cross-entropy), as XLA's partitioner splits
+  JAX's step;
+* FSDP, for the SSM, hybrid and audio families (mamba2, hymba,
+  whisper), meshes without ``model`` and every family without
+  ``tensor_parallel=True``: each param is gathered whole and the whole
+  loss runs on every rank, so every rank's forward is the unsharded
+  step's, bit for bit, on its rows (but for the MoE aux loss's batch
+  means, below).  A split contraction rounds otherwise: on a (1, 1)
+  mesh the two routes are bit-equal, on a split ``model`` axis they
+  differ by float32 rounding, as a float64 step differs from a float32
+  one.
 
 On both, the loss and its gradient are computed on the rank's batch
 shard, and each gradient is reduce-scattered (summed over the mesh dims
@@ -31,7 +34,9 @@ the batch is split on, in float32, never over ``model``, whose ranks
 see the same rows) into its param's placements, where AdamW updates
 the shards.  Each rank's loss is weighted by its share of the global
 label count, so the summed loss and gradient are those of the global
-batch.  ``grad_accum`` runs on a mesh too (:func:`_microbatches`).
+batch; the MoE aux loss, a product of two batch means, takes its means
+over the global batch on both routes (``moe.batch_mean``).
+``grad_accum`` runs on a mesh too (:func:`_microbatches`).
 
 The prefill and decode steps take DTensor params too (JAX's dry run
 pjits all three kinds of step), forward only (:func:`_sharded_prefill`,
@@ -40,7 +45,7 @@ there is no rounding to keep bit-equal, so they take the
 tensor-parallel route wherever the family and mesh allow it
 (``tensor_parallel.for_step`` is not ``None``), and FSDP elsewhere:
 
-* tensor-parallel, for the dense and VLM families on a mesh with
+* tensor-parallel, for the dense, VLM and MoE families on a mesh with
   ``model``: each param keeps its ``model`` split, as in the train
   step, the model runs on the rank's shards and the KV cache stays
   where ``sharding.cache_entry_spec`` puts ``model``: split by KV heads,
@@ -71,8 +76,9 @@ from torch.distributed.tensor import (
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.tensor_parallel import for_step as tp_for_step
+from repro_torch.distributed.tensor_parallel import mean_over
 from repro_torch.launch.mesh import dp_axes
-from repro_torch.models import transformer
+from repro_torch.models import moe, transformer
 from repro_torch.models.api import get_model
 from repro_torch.train import optimizer as opt
 from repro_torch.tree import (
@@ -177,9 +183,13 @@ def _sharded_value_and_grad(mb, cfg, params, batch, split_model=False):
     count = torch.sum(local["labels"] >= 0).to(torch.float32)
     share = count / torch.clamp_min(summed(count), 1.0)
     tree = unflatten_like(params, held)
-    loss = (mb.loss_fn(tree, local) if tp is None else
-            transformer.loss_fn(tree, cfg, local, tp=tp)) * share
-    grads = torch.autograd.grad(loss, held, materialize_grads=True)
+    # the MoE aux loss's batch means over the global batch, in the
+    # forward and in remat's recompute during the backward
+    with moe.batch_mean(mean_over(mesh, [
+            i for i, pl in enumerate(split) if pl.is_shard(0)])):
+        loss = (mb.loss_fn(tree, local) if tp is None else
+                transformer.loss_fn(tree, cfg, local, tp=tp)) * share
+        grads = torch.autograd.grad(loss, held, materialize_grads=True)
     placed = [DTensor.from_local(g.to(torch.float32), mesh, pl,
                                  run_check=False)
               .redistribute(mesh, p.placements)

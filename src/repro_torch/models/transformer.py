@@ -28,7 +28,7 @@ recomputes the rest, in place of ``jax.checkpoint`` and its
 ``dots_with_no_batch_dims_saveable`` policy.
 
 ``loss_fn(tp=)``, ``prefill(tp=)`` and ``decode_step(tp=)`` run the
-dense layers tensor-parallel over a mesh's ``model`` axis
+dense and MoE layers tensor-parallel over a mesh's ``model`` axis
 (``distributed.tensor_parallel``: the params are the rank's shards, the
 sharded steps pass the context; a serve step's cache is the rank's
 share, split as ``tp.cache`` says); with ``tp=None`` nothing of this
@@ -329,12 +329,14 @@ def _seq_decode(q, k, v, cache_kv, cfg: ArchConfig, tp, split, cache_len,
 def _mlp_block(lp, cfg: ArchConfig, x, *, decode=False, tp=None):
     """The MLP half's mixer: (y, aux) with the MoE load-balance loss as
     ``aux`` (0 for the other FFNs).  MoE takes the dense-mix path at
-    decode and the dispatch path otherwise.  ``tp`` splits a dense or
-    spiking FFN's ``d_ff``."""
+    decode and the dispatch path otherwise.  ``tp`` (the tensor-parallel
+    context) splits a dense or spiking FFN's ``d_ff``, or the experts'
+    ``d_ff_expert`` (``models/moe.py``)."""
     pc, mode = cfg.precision, cfg.quant_mode
     if cfg.moe is not None:
         return MOE.moe_apply(lp, x, cfg.moe, ffn_kind=cfg.ffn, act=cfg.act,
-                             pc=pc, mode=mode, decode=decode)
+                             pc=pc, mode=mode, decode=decode, tp=tp)
+    tp = tp and tp.on("mlp")
     if cfg.spiking is not None:
         return L.spiking_ffn_apply(
             lp, x, cfg.act, timesteps=cfg.spiking.timesteps,
@@ -362,8 +364,7 @@ def _residual_tail(lp, cfg: ArchConfig, x, a, *, decode=False, tp=None):
     aux = 0.0
     if "mlp" in lp:
         h2 = L.apply_norm(cfg.norm, lp["ln2"], x)
-        m, aux = _mlp_block(lp["mlp"], cfg, h2, decode=decode,
-                            tp=tp and tp.on("mlp"))
+        m, aux = _mlp_block(lp["mlp"], cfg, h2, decode=decode, tp=tp)
         if cfg.post_block_norms:
             m = L.apply_norm(cfg.norm, lp["post_ln2"], m)
         x = x + m

@@ -1,6 +1,7 @@
 """One rank of a multi-rank case of ``test_torch_distributed.py`` (and
 of ``test_torch_tensor_parallel.py``: :func:`case_tp`; of
-``test_torch_tp_serve.py``: :func:`case_tp_serve`).
+``test_torch_tp_serve.py``: :func:`case_tp_serve`; of
+``test_torch_tp_moe.py``: :func:`case_tp_moe`).
 
 Run as ``python tests/_torch_dist_ranks.py CASE RANK WORLD DIR``: joins a
 gloo group through ``file://DIR/store``, reads the case's inputs from
@@ -158,6 +159,44 @@ def case_cp(rank, world, inp):
     return {"loss": loss.item(), "seen": seen}
 
 
+#: what :func:`_record` saw in the current case: each leaf's ``model``
+#: placements (forward, gradient) by path, and each MoE router call's
+#: (tensor-parallel, top-k indices)
+_SEEN, _ROUTED = {}, []
+
+
+def _record() -> None:
+    """Record in :data:`_SEEN` every placement a tensor-parallel context
+    gives and in :data:`_ROUTED` every MoE router call's top-k indices,
+    with whether the call ran on the tensor-parallel route."""
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.models import moe as MOE
+
+    if getattr(TP.TensorParallel.placements, "recorded", False):
+        return
+    placements, apply, router = (TP.TensorParallel.placements,
+                                 MOE.moe_apply, MOE._router)
+    on_tp = [False]
+
+    def recorded(self, path):
+        out = placements(self, path)
+        _SEEN["/".join(str(k) for k in path)] = tuple(repr(p) for p in out)
+        return out
+
+    def moe_apply(*args, tp=None, **kw):
+        on_tp[0] = tp is not None
+        return apply(*args, tp=tp, **kw)
+
+    def routed(p, x, cfg):
+        gates, idx, aux = router(p, x, cfg)
+        _ROUTED.append((on_tp[0], idx.detach().clone()))
+        return gates, idx, aux
+
+    recorded.recorded = True
+    TP.TensorParallel.placements = recorded
+    MOE.moe_apply, MOE._router = moe_apply, routed
+
+
 def _serve_run(mesh, cfg, params, placed, batch, steps_, pad=2):
     """A prefill and a decode step for each of ``steps_`` on ``placed``
     (params placed on ``mesh``) against the unsharded steps on
@@ -272,6 +311,7 @@ def case_tp_serve(rank, world, inp):
             super().__init__(placed, mesh, rows)
 
     St.tp_for_step, St._LayerRows = counted_for_step, Counted
+    _record()
     out = {}
     for mp, named in inp["meshes"].items():
         mesh = make_host_mesh(mp)
@@ -285,13 +325,17 @@ def case_tp_serve(rank, world, inp):
                      case["batch"].items()}
             contexts.clear()
             gathered.clear()
+            _SEEN.clear()
+            _ROUTED.clear()
             res, outs = _serve_run(mesh, cfg, params, placed, batch,
                                    case["steps"], case["pad"])
             out[name] = {
                 "checks": res,
                 "routes": [c and c.cache for c in contexts],
                 "heads": [c and c.heads for c in contexts],
+                "experts": [c and c.experts for c in contexts],
                 "gathered": list(gathered),
+                "split": dict(_SEEN), "routed": list(_ROUTED),
                 "outs": outs if rank == 0 and name in inp["keep"] else None}
     return out
 
@@ -321,21 +365,12 @@ def case_tp(rank, world, inp):
     route and of the unsharded step on the rank's rows, on a
     (world / 2, 2) mesh."""
     from repro_torch.distributed import sharding as shd
-    from repro_torch.distributed import tensor_parallel as TP
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.launch.steps import make_train_step
     from repro_torch.train import optimizer as opt
     from repro_torch.tree import map_tree
 
-    seen = {}
-    orig = TP.TensorParallel.placements
-
-    def placements(self, path):
-        out = orig(self, path)
-        seen["/".join(str(k) for k in path)] = tuple(repr(p) for p in out)
-        return out
-
-    TP.TensorParallel.placements = placements
+    _record()
 
     def whole(tree):
         # every rank gathers; a copy, as a replicated leaf's full_tensor
@@ -363,7 +398,8 @@ def case_tp(rank, world, inp):
         ostate = opt.init(params)
         step = make_train_step(cfg, case["opt"], case.get("grad_accum", 1),
                                tensor_parallel=case["tp"])
-        seen.clear()
+        _SEEN.clear()
+        _ROUTED.clear()
         res = {"losses": [], "steps": []}
         for _ in range(2):
             params, ostate, m = step(params, ostate, batch)
@@ -371,7 +407,8 @@ def case_tp(rank, world, inp):
             res["steps"].append({"params": whole(params),
                                  "m": whole(ostate["m"]),
                                  "v": whole(ostate["v"])})
-        res["split"] = dict(seen)
+        res["split"] = dict(_SEEN)
+        res["routed"] = list(_ROUTED)
         res["placed"] = all(tuple(a.placements) == tuple(b.placements)
                             for a, b in zip(leaves(params),
                                             leaves(ostate["m"])))
@@ -395,9 +432,18 @@ def case_tp(rank, world, inp):
     return out
 
 
+def case_tp_moe(rank, world, inp):
+    """``tests/test_torch_tp_moe.py``: the MoE family's train cases
+    (:func:`case_tp` on ``inp["train"]``) and serve cases
+    (:func:`case_tp_serve` on ``inp["serve"]``), each case's result with
+    its leaves' placements and its router calls' top-k indices."""
+    return {"train": case_tp(rank, world, inp["train"]),
+            "serve": case_tp_serve(rank, world, inp["serve"])}
+
+
 CASES = {"cp": case_cp, "ef": case_ef, "pipe": case_pipe, "step": case_step,
          "restore": case_restore, "serve": case_serve, "tp": case_tp,
-         "tp_serve": case_tp_serve}
+         "tp_serve": case_tp_serve, "tp_moe": case_tp_moe}
 
 
 def main(case, rank, world, d):

@@ -199,12 +199,11 @@ def test_tp_serve_against_jax(runs, name):
                 err_msg=f"{name} {step} {key}")
 
 
-def test_dryrun_decode_cell_splits_the_flops_over_256_ranks(tmp_path):
-    """olmo-1b ``decode_32k`` at depth 2 on the fake 16 x 16 mesh (in a
-    subprocess: the fake group is process-global): the KV heads split,
-    so nothing is gathered over ``model``, and the FLOPs split 256
-    ways against the unsharded step's count of the cell (what
-    ``exact_flops`` counts at full depth), op by op."""
+def _dryrun_decode(tmp_path, arch):
+    """``arch``'s ``decode_32k`` at depth 2 on the fake 16 x 16 mesh (in
+    a subprocess: the fake group is process-global): the cell's record,
+    its FLOPs by op on rank 0 (``mine``) and the unsharded step's on the
+    cell (``whole``), and the all-gathers over ``model``."""
     code = f"""
         import collections
         import json
@@ -240,8 +239,8 @@ def test_dryrun_decode_cell_splits_the_flops_over_256_ranks(tmp_path):
 
         D.place_cell, D.CellWalker.charge = placed, counted
         shape = SHAPES["decode_32k"]
-        cfg = override_depth(get_config("olmo-1b"), 2)
-        rec = D.run_cell_cfg(cfg, "olmo-1b", "decode_32k", force=True)
+        cfg = override_depth(get_config({arch!r}), 2)
+        rec = D.run_cell_cfg(cfg, {arch!r}, "decode_32k", force=True)
         c = D.cell_config(cfg, shape)
         tokens = torch.empty((shape.global_batch, 1), dtype=torch.int32,
                              device="meta")
@@ -265,7 +264,16 @@ def test_dryrun_decode_cell_splits_the_flops_over_256_ranks(tmp_path):
                          capture_output=True, text=True, timeout=240,
                          env=env, cwd=ROOT)
     assert out.returncode == 0, out.stderr[-3000:]
-    res = json.loads(out.stdout.strip().splitlines()[-1])
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_dryrun_decode_cell_splits_the_flops_over_256_ranks(tmp_path):
+    """olmo-1b ``decode_32k`` at depth 2 on the fake 16 x 16 mesh (in a
+    subprocess: the fake group is process-global): the KV heads split,
+    so nothing is gathered over ``model``, and the FLOPs split 256
+    ways against the unsharded step's count of the cell (what
+    ``exact_flops`` counts at full depth), op by op."""
+    res = _dryrun_decode(tmp_path, "olmo-1b")
     rec, n = res["rec"], res["rec"]["n_devices"]
     assert rec["ok"], rec["error"]
     assert n == 256
@@ -288,5 +296,25 @@ def test_dryrun_decode_cell_splits_the_flops_over_256_ranks(tmp_path):
                 k not in copies) for counts in (mine, whole)]
     assert abs(rest[0] * n / rest[1] - 1) <= 0.1, rest
     # the params' gathers over data (FSDP's specs), none over model
+    assert res["gathers"] > 0 and res["model_gathers"] == 0, res
+    assert rec["collective_bytes"]["all-reduce"] > 0
+
+
+def test_dryrun_moe_decode_cell_splits_the_flops_over_256_ranks(tmp_path):
+    """moonshot-v1-16b-a3b ``decode_32k`` at depth 2 on the fake 16 x 16
+    mesh: its 16 KV heads, ``d_ff_expert`` 1408 and vocab 163840 split
+    on 16, so the rank's matmul FLOPs (the attention's, the dense mix of
+    all 64 experts', the logits') x 256 are the unsharded step's within
+    10%, and nothing is gathered over ``model``."""
+    res = _dryrun_decode(tmp_path, "moonshot-v1-16b-a3b")
+    rec, n = res["rec"], res["rec"]["n_devices"]
+    assert rec["ok"], rec["error"]
+    assert n == 256
+    mine, whole = res["mine"], res["whole"]
+    assert sum(mine.values()) == rec["flops_per_device"]
+    mm = ("mm", "addmm", "bmm", "baddbmm")
+    got, want = (sum(c.get(k, 0) for k in mm) for c in (mine, whole))
+    assert whole["bmm"] > 0.5 * want     # the dense mix's expert products
+    assert abs(got * n / want - 1) <= 0.1, (got * n, want)
     assert res["gathers"] > 0 and res["model_gathers"] == 0, res
     assert rec["collective_bytes"]["all-reduce"] > 0
