@@ -199,11 +199,14 @@
    placed params) over a bf16 and an INT4 KV cache (16
    ``kv_attention`` a step), logits and cache bit-equal to the
    unsharded steps, ms a decode step and peak memory of both; then the
-   MoE family on the same route, granite-moe-3b-a800m at full width
-   (``_tp_moe``): 3 W4 QAT train steps at full depth against the
-   unsharded step (the olmo case's gates), and its prefill and 32
-   decode steps over bf16 and INT4 KV (32 ``kv_attention`` a step),
-   bit-equal, every router call's experts the unsharded run's.  More
+   MoE, SSM and hybrid families on the same route at full width
+   (``_tp_family``): mamba2-1.3b (3 W4 QAT train steps at full depth),
+   hymba-1.5b and granite-moe-3b-a800m (at 8 of 32 layers) against the
+   unsharded step (the olmo case's gates), and their prefill and 32
+   decode steps (mamba2 and hymba at full depth, granite at 8 layers;
+   granite and hymba over bf16 and INT4 KV, a ``kv_attention`` a layer
+   a step; mamba2 with no KV cache), bit-equal, every router call's
+   experts the unsharded run's.  More
    than one rank on a mesh axis needs more cards: the CPU tests run
    those over gloo.
 
@@ -1832,7 +1835,8 @@ def families_kernel_phase(dev):
     against its plain version and timed at Hymba's (hd 64, 5 query
     heads a KV head, window 1024) and PaliGemma's (hd 256, G 8) served
     caches and at granite's (hd 64, G 3, 8 x 1024 positions, 544 live)
-    as the distributed phase's tensor-parallel decode reads it.  It
+    and hymba's (G 5, window 1024, the same cache) as the distributed
+    phase's tensor-parallel decode reads them.  It
     runs beside the other kernel phases, before the serving and
     training phases, after which the profiler misses launches (PERF.md
     §7).  Returns (rows, errs) for the kernel record."""
@@ -1902,6 +1906,13 @@ def families_kernel_phase(dev):
                          engine + [b * HYMBA_LEN, b])
             kv(arch, short, cfg, HYMBA_LEN + FAM_STEPS, cfg.sliding_window,
                ((0, None),))
+            # the distributed phase's tensor-parallel decode over INT4 KV
+            r, err = kv_row(dev, gen, "hymba tp", b=8, s_len=1024,
+                            live=512 + 32, h=cfg.n_heads, kh=cfg.n_kv,
+                            hd=cfg.head_dim, window=cfg.sliding_window,
+                            checks=((0, None),))
+            rows["kv_attention"]["hymba tp decode"] = r
+            errs["kv_attention"] = max(errs["kv_attention"], err)
         else:
             check_served(f"{short} prefills", layers, engine)
         if short == "granite":
@@ -3465,15 +3476,18 @@ def _tp_serve(dev, card, mesh, arch, layers=None):
     prefill of 8 x 512 tokens padded to 1024 and 32 decode steps of
     ``make_prefill_step`` / ``make_decode_step`` (their tensor-parallel
     route) on params placed by ``to_shardings``, once over a bf16 KV
-    cache and once over an INT4 one, against the unsharded ``prefill`` /
+    cache and once over an INT4 one (once for an attention-free config,
+    which has no KV cache), against the unsharded ``prefill`` /
     ``decode_step`` from the same params, fed the same (greedy) tokens:
-    logits and cache bit-equal (on one rank the KV-head split is the
-    unsharded arithmetic), the route's contexts asserted (one a step,
-    cache split by KV heads), ``n_layers`` ``kv_attention`` launches a
-    step on the INT4 route, and for a MoE config every router call's
-    top-k experts equal to the unsharded run's; ms a decode step and
-    peak memory of both.  Returns (the INT4 route's decode launches
-    under ``"dist tp <arch> int4-kv"``, the last context)."""
+    logits and cache bit-equal, the SSM's ``conv`` and ``ssm`` entries
+    included (on one rank the KV-head split and the SSM-head split are
+    the unsharded arithmetic), the route's contexts asserted (one a
+    step, cache split by KV heads, SSM heads split where the config has
+    them), ``n_layers`` ``kv_attention`` launches a step on the INT4
+    route, and for a MoE config every router call's top-k experts equal
+    to the unsharded run's; ms a decode step and peak memory of both.
+    Returns (the INT4 route's decode launches under ``"dist tp <arch>
+    int4-kv"``, the last context)."""
     import dataclasses
 
     import numpy as np
@@ -3528,13 +3542,17 @@ def _tp_serve(dev, card, mesh, arch, layers=None):
                 logits, pre = St.make_prefill_step(cfg)(placed, {
                     "tokens": put(toks, lambda sh: shd.batch_spec(
                         "tokens", sh, mesh))})
-                pre = {k: whole(v) for k, v in pre.items()}
-                cache = {k: put(v, lambda sh, k=k: shd.cache_entry_spec(
-                    k, sh, mesh)) for k, v in _pad_cache(pre, max_len).items()}
-                step = St.make_decode_step(cfg)
             else:
                 logits, pre = transformer.prefill(params, cfg, toks)
-                cache = _pad_cache(pre, max_len)
+            pre = {k: whole(v) for k, v in pre.items()}
+            # the decode steps write the cache in place, and _pad_cache
+            # passes the SSM entries through: decode a copy
+            cache = _pad_cache({k: v.clone() for k, v in pre.items()},
+                               max_len)
+            if sharded:
+                cache = {k: put(v, lambda sh, k=k: shd.cache_entry_spec(
+                    k, sh, mesh)) for k, v in cache.items()}
+                step = St.make_decode_step(cfg)
             out, fed = [whole(logits)], []
             torch.cuda.synchronize()
             kv_ops.quant_kv_decode_attention.launches = 0
@@ -3558,17 +3576,21 @@ def _tp_serve(dev, card, mesh, arch, layers=None):
                 launches, list(routed))
 
     runs = {}
+    route = None if base.is_attention_free else "heads"
+    ssm = base.ssm is not None
     St.tp_for_step, MOE._router = counted_for_step, recorded_router
     try:
-        for bits in (16, 4):
+        for bits in (16,) if route is None else (16, 4):
             cfg = dataclasses.replace(base, kv_cache_bits=bits)
             ref = run(cfg, False)
             contexts.clear()
             mine = run(cfg, True, ref[1])
             routes = [c and c.cache for c in contexts]
             label = f"tensor-parallel serve {arch} (KV {bits})"
-            if routes != ["heads"] * (1 + n_steps):
-                raise AssertionError(f"{label}: routes {routes}")
+            if (routes != [route] * (1 + n_steps) or None in contexts
+                    or any(c.ssm != ssm for c in contexts)):
+                raise AssertionError(f"{label}: routes {routes}, contexts "
+                                     f"{contexts}")
             same = (all(torch.equal(a, w) for a, w in zip(mine[0], ref[0]))
                     and all(torch.equal(mine[k][key], ref[k][key])
                             for k in (2, 3) for key in ref[k]))
@@ -3586,14 +3608,18 @@ def _tp_serve(dev, card, mesh, arch, layers=None):
                                      f"from the unsharded run's")
             if bits != 16:
                 runs[f"dist tp {arch} int4-kv"] = {"kv_attention": mine[6]}
-            kv = "bf16" if bits == 16 else "INT4"
+            kv = ("no KV" if route is None else "bf16 KV" if bits == 16
+                  else "INT4 KV")
             experts = (f", {len(mine[7])} router calls' top-"
                        f"{cfg.moe.top_k} experts equal, "
                        f"experts split {contexts[-1].experts}"
                        if cfg.moe else "")
+            if ssm:
+                experts += (f", SSM heads split {contexts[-1].ssm} (cache "
+                            f"entries {sorted(mine[3])})")
             print(f"distributed: {arch} full width ({cfg.n_layers} "
                   f"layers, d {cfg.d_model}, {cfg.dtype} params), "
-                  f"{kv} KV cache, prefill {b} x {s_len} padded to "
+                  f"{kv} cache, prefill {b} x {s_len} padded to "
                   f"{max_len} and {n_steps} decode steps of "
                   f"make_prefill_step / make_decode_step (tensor-parallel) "
                   f"on the (1, 1) mesh vs the unsharded steps "
@@ -3628,36 +3654,36 @@ def _time_all_reduce(dev, card, ctx, shape):
           f"device done, over 100 calls [{card}]", flush=True)
 
 
-def _tp_moe(dev, card, mesh):
-    """The MoE family on the tensor-parallel route, on the (1, 1) mesh:
-    granite-moe-3b-a800m at full width (d 1536, 24 heads, 8 KV heads, 40
-    experts top-8, ``d_ff_expert`` 512, vocab 49155, bf16):
+def _tp_family(dev, card, mesh, arch, part, layers=None, serve_layers=None):
+    """One family on the tensor-parallel route, on the (1, 1) mesh, at
+    full width (bf16):
 
-    1. 3 steps of ``make_train_step(tensor_parallel=True)`` at full
-       depth (32 layers: with the three param copies the comparison
-       keeps, the float32 gradients and AdamW moments and QAT's saved
-       weights, ~60 GB of the card's 80), W4 QAT (the experts' ``wo``
-       through ``fake_quant_rows``), batch 8 x 128, against 3 unsharded
-       steps and a second unsharded run under the olmo-1b case's gates
-       (:func:`_tp_train_vs_unsharded`): the context made once a step
-       with the experts split;
-    2. the tensor-parallel prefill and decode steps over a bf16 and an
-       INT4 KV cache (:func:`_tp_serve`): bit-equal, 32
-       ``kv_attention`` launches a step on the INT4 route, every router
-       call's experts the unsharded run's.
+    1. 3 steps of ``make_train_step(tensor_parallel=True)``, W4 QAT per
+       channel, batch 8 x 128, at ``layers`` of the arch's layers
+       (default all), against 3 unsharded steps and a second unsharded
+       run under the olmo-1b case's gates (:func:`_tp_train_vs_unsharded`),
+       the context made once a step with ``part`` split (``"experts"``:
+       the MoE's ``d_ff_expert``; ``"ssm"``: the Mamba-2 heads);
+    2. its prefill and decode steps at ``serve_layers`` (default all)
+       over each KV cache it has (:func:`_tp_serve`): bit-equal,
+       ``n_layers`` ``kv_attention`` launches a step on the INT4 route.
 
-    Returns the INT4 route's decode launches."""
+    Prints each part's seconds.  Returns the INT4 route's decode
+    launches."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.launch import steps as St
+    from repro_torch.perfmodel.roofline import override_depth
     from repro_torch.quant.formats import PrecisionConfig
     from repro_torch.train.trainer import TrainConfig
 
+    t0 = time.perf_counter()
+    full = get_config(arch)
     cfg = dataclasses.replace(
-        get_config("granite-moe-3b-a800m"),
+        override_depth(full, layers or full.n_layers),
         precision=PrecisionConfig(bits=4, group_size=-1))
     contexts, for_step = [], St.tp_for_step
 
@@ -3672,18 +3698,22 @@ def _tp_moe(dev, card, mesh):
             dev, mesh, cfg, TrainConfig().opt, batches, contexts)
     finally:
         St.tp_for_step = for_step
-    if not all(c.experts for c in contexts):
-        raise AssertionError("granite train: the experts did not split")
+    if not all(getattr(c, part) for c in contexts):
+        raise AssertionError(f"{arch} train: {part} did not split")
     del ref, sharded
     torch.cuda.empty_cache()
-    print(f"distributed: granite-moe-3b-a800m full width and depth "
-          f"({cfg.n_layers} layers, {cfg.dtype}, W4 QAT), batch 8 x 128, "
+    c = contexts[-1]
+    print(f"distributed: {arch} full width ({cfg.n_layers} of "
+          f"{full.n_layers} layers, {cfg.dtype}, W4 QAT), batch 8 x 128, "
           f"3 steps on params placed by to_shardings on the (1, 1) mesh vs "
           f"unsharded [{card}]: {figures}; route tensor-parallel "
-          f"({len(contexts)} contexts: heads {contexts[-1].heads}, kv "
-          f"{contexts[-1].kv}, experts {contexts[-1].experts}, vocab "
-          f"{contexts[-1].vocab})", flush=True)
-    runs, _ = _tp_serve(dev, card, mesh, "granite-moe-3b-a800m")
+          f"({len(contexts)} contexts: heads {c.heads}, kv {c.kv}, mlp "
+          f"{c.mlp}, experts {c.experts}, SSM heads {c.ssm}, vocab "
+          f"{c.vocab})", flush=True)
+    t1 = time.perf_counter()
+    runs, _ = _tp_serve(dev, card, mesh, arch, serve_layers)
+    print(f"distributed: {arch} tensor-parallel train {t1 - t0:.1f} s, "
+          f"serve {time.perf_counter() - t1:.1f} s", flush=True)
     return runs
 
 
@@ -3718,8 +3748,10 @@ def distributed_phase(dev, card):
        bf16 and an INT4 KV cache against the unsharded ones, bit-equal
        (:func:`_tp_serve`), and the ms of one all-reduce on the route;
     7. the MoE family on the route: granite-moe-3b-a800m's train, prefill
-       and decode steps against the unsharded ones (:func:`_tp_moe`),
-       with the seconds they took.
+       and decode steps at 8 of its 32 layers against the unsharded ones
+       (:func:`_tp_family`), with the seconds they took;
+    8. the SSM and hybrid families on the route: mamba2-1.3b's and
+       hymba-1.5b's (:func:`_tp_family`), with the seconds they took.
 
     The group is destroyed at the end.  Returns the data-parallel serve
     runs' launches and the INT4 tensor-parallel decode steps'."""
@@ -3902,11 +3934,24 @@ def distributed_phase(dev, card):
         # embedding
         _time_all_reduce(dev, card, ctx, (8, 1, cfg.d_model))
 
-        # 7. the MoE family on the route: granite-moe-3b-a800m
+        # 7. the MoE family on the route: granite-moe-3b-a800m (d 1536,
+        # 40 experts top-8, d_ff_expert 512) at 8 of its 32 layers, train
+        # and serve (the command's time: the SSM and hybrid steps below
+        # run at the depths their gates ask for)
         t_moe = time.perf_counter()
-        runs.update(_tp_moe(dev, card, mesh))
+        runs.update(_tp_family(dev, card, mesh, "granite-moe-3b-a800m",
+                               "experts", 8, 8))
         print(f"distributed: the MoE steps {time.perf_counter() - t_moe:.1f} "
               f"s", flush=True)
+
+        # 8. the SSM and hybrid families on the route: mamba2-1.3b (64
+        # SSM heads, in_proj 2048 -> 8512) at full depth, hymba-1.5b's
+        # train step at 8 of its 32 layers (the command's time)
+        t_ssm = time.perf_counter()
+        runs.update(_tp_family(dev, card, mesh, "mamba2-1.3b", "ssm"))
+        runs.update(_tp_family(dev, card, mesh, "hymba-1.5b", "ssm", 8))
+        print(f"distributed: the SSM and hybrid steps "
+              f"{time.perf_counter() - t_ssm:.1f} s", flush=True)
     finally:
         St.tp_for_step = tp_for_step
         dist.destroy_process_group()
@@ -4316,7 +4361,9 @@ def main() -> int:
         # linears): the same cache geometry as olmo int4-kv's
         "dist tp olmo-1b int4-kv": {"kv_attention": ["decode"] * 16},
         "dist tp granite-moe-3b-a800m int4-kv": {
-            "kv_attention": ["granite tp decode"] * 32},
+            "kv_attention": ["granite tp decode"] * 8},
+        "dist tp hymba-1.5b int4-kv": {
+            "kv_attention": ["hymba tp decode"] * 32},
         # the serve phase's 16 prefills (36-251 tokens at seed 0; those
         # under 64 tokens take the gemv variant), the uniform 8 x 512 one
         "olmo serve prefill": {"packed_qmatmul": [
@@ -4420,8 +4467,8 @@ def main() -> int:
           "runs, their prefills counted apart; packed_qmatmul also one "
           "decode layer of each family at M=8, kv_attention also Hymba's "
           "and PaliGemma's INT4 caches and the distributed phase's 32 "
-          "tensor-parallel olmo-1b and granite-moe decode steps over INT4 "
-          "KV, granite's at its own geometry); "
+          "tensor-parallel olmo-1b, granite-moe and hymba decode steps "
+          "over INT4 KV, granite's and hymba's at their own geometry); "
           "paths gives each path's launches and its kernel ms per B=8 "
           "forward (NCE: per step of each geometry; olmo and the families: "
           "per decode step, per INT4-KV prefill, and over the serve "

@@ -1,5 +1,5 @@
 """Tensor-parallel compute over a mesh's ``model`` axis, for the sharded
-train, prefill and decode steps of the dense, VLM and MoE transformer
+train, prefill and decode steps of the dense, VLM, MoE, SSM and hybrid
 families.
 
 JAX pjits its steps onto ``sharding.py``'s specs, and XLA's partitioner
@@ -13,13 +13,16 @@ the serve steps add where the KV cache lies (:attr:`TensorParallel.cache`).
 Routes, by ``cfg.family`` (:func:`for_step`):
 
 * ``"dense"`` (olmo-1b, stablelm-1.6b, gemma2-2b, internlm2-20b),
-  ``"vlm"`` (paligemma-3b's text decoder and ``vision_proj``) and
+  ``"vlm"`` (paligemma-3b's text decoder and ``vision_proj``),
   ``"moe"`` (granite-moe-3b-a800m, moonshot-v1-16b-a3b: the attention,
-  embedding and head as the dense families', the MoE block below) take
-  the tensor-parallel route below;
-* the SSM, hybrid and audio families (mamba2, hymba, whisper) and any
-  mesh without a ``model`` axis take the FSDP route: every param
-  gathered whole, the whole loss on every rank.
+  embedding and head as the dense families', the MoE block below),
+  ``"ssm"`` (mamba2-1.3b: the Mamba-2 mixer below, no attention) and
+  ``"hybrid"`` (hymba-1.5b: the attention as the dense families', the
+  Mamba-2 mixer beside it, the GLU MLP) take the tensor-parallel route
+  below;
+* the audio family (whisper) and any mesh without a ``model`` axis
+  take the FSDP route: every param gathered whole, the whole loss on
+  every rank.
 
 On the tensor-parallel route each param is gathered over the batch's
 mesh dims only and keeps the ``model`` split of :meth:`placements`:
@@ -51,14 +54,31 @@ mesh dims only and keeps the ``model`` split of :meth:`placements`:
   the replicated input, so every rank routes the same; one
   ``reduce_out`` a layer sums the gate-combined partial outputs, the
   shared experts' included.  The expert ``wo``'s fake-quant groups run
-  along the split ``f``: :meth:`fake_quant_rows`' rule.
+  along the split ``f``: :meth:`fake_quant_rows`' rule;
+* the Mamba-2 mixer (``models/mamba2.py``, ``tp=``) splits its heads
+  where ``nh`` divides ``model`` (and B and C form one group, which
+  every head reads): the rank runs heads ``[r nh / m, (r + 1) nh / m)``,
+  which ``din``'s head-major layout aligns with JAX's splits of
+  ``A_log``, ``dt_bias``, ``D``, ``norm_g`` and ``out_proj``'s rows.
+  ``in_proj`` (z, x, B, C and dt side by side, its columns stored
+  contiguously split) and the conv (channels x, B, C) are gathered
+  whole and narrowed to what the rank's heads read: their z, x and dt,
+  B and C whole (:meth:`ssm_shard`), as ``wk``/``wv`` are for gathered
+  KV heads.  The input passes ``copy_in``; the conv and the SSD scan run
+  on the rank's channels with no collective; the gated norm's mean over
+  the whole ``din`` is summed over ``model`` (:meth:`sum_over`);
+  ``out_proj`` is row-parallel, one ``reduce_out`` a layer.  In the
+  hybrid, the attention and the mixer, both split, read one ``copy_in``
+  of their input (``transformer._block_full``), and it mixes their
+  outputs, both reduced, as the unsharded layer does.
 
 A part whose dim does not divide ``model`` (``d_ff``, ``d_ff_expert``,
-the vocab, ``d_model`` for ``vision_proj``) runs whole on every rank.
-Every ``model`` rank of a data group sees the same rows, so a gradient is
-summed over the batch's mesh dims only: a split param's gradient is its
-own slice, a param run whole has the same gradient on every ``model``
-rank, and ``wk``/``wv`` gathered for their KV heads have partial sums
+the vocab, ``d_model`` for ``vision_proj``, the SSM heads) runs whole on
+every rank.  Every ``model`` rank of a data group sees the same rows, so
+a gradient is summed over the batch's mesh dims only: a split param's
+gradient is its own slice, a param run whole has the same gradient on
+every ``model`` rank, and ``wk``/``wv`` gathered for their KV heads and
+``in_proj`` and the conv gathered for the SSM heads have partial sums
 (:meth:`placements`).
 
 The prefill and decode steps run the same splits forward only, and the
@@ -78,6 +98,13 @@ KV cache stays where ``sharding.cache_entry_spec`` puts ``model``
 * ``"whole"`` (neither divides ``model``): every rank holds and writes
   the whole cache and attends with its query heads over the KV heads
   they read (:meth:`kv_view`).
+
+A Mamba-2 layer's state ``ssm`` ``(L, B, nh, hp, N)`` is the rank's
+heads' where they split (its spec splits ``nh``), else whole; its conv
+inputs ``conv`` ``(L, B, W - 1, conv_ch)`` are whole on every rank (the
+rank's x channels gathered over ``model``), since their spec's
+contiguous channel split is not the rank's heads'.  The serve steps
+place both as the spec says (``launch/steps.py``).
 
 The collectives are ``torch.distributed``'s functional ones
 (``_c10d_functional``), which the dry run's walker counts.
@@ -109,6 +136,12 @@ _SPLITS = [
     (r"mlp/wo$", "experts", 1),              # stacked (E, f, d)
     (r"mlp/shared_w[ig]$", "shared", 1),
     (r"mlp/shared_wo$", "shared", 0),
+    # the Mamba-2 mixer: dim None marks a param held whole and narrowed
+    # to the rank's channels (``TensorParallel.ssm_shard``)
+    (r"ssm/in_proj/w$", "ssm", None),
+    (r"ssm/conv_[wb]$", "ssm", None),
+    (r"ssm/out_proj/w$", "ssm", 0),
+    (r"ssm/(A_log|dt_bias|D|norm_g)$", "ssm", 0),
 ]
 
 
@@ -231,14 +264,16 @@ class TensorParallel:
     context for a part that splits, else ``None``.  ``cache``: where a
     serve step's KV cache splits over ``model`` (``"heads"``, ``"seq"``
     or ``"whole"``; module docstring), which the step sets; ``None`` in
-    the train step."""
+    the train step.  ``ssm``: the Mamba-2 mixer's heads split (module
+    docstring); ``ssm_heads`` the rank's count of them."""
 
     def __init__(self, cfg, mesh):
         self.group = mesh.get_group("model")
         self.size = mesh.size(mesh.mesh_dim_names.index("model"))
         self.rank = mesh.get_local_rank("model")
         m = self.size
-        self.heads = cfg.n_heads % m == 0
+        # an attention-free config (mamba2) has n_heads 0, which divides
+        self.heads = cfg.n_heads > 0 and cfg.n_heads % m == 0
         self.kv = self.heads and cfg.n_kv % m == 0
         moe = cfg.moe
         self.mlp = moe is None and cfg.d_ff > 0 and cfg.d_ff % m == 0
@@ -255,6 +290,14 @@ class TensorParallel:
             self.n_kv = cfg.n_kv // m
         elif self.heads:
             self._plan_kv_gather(cfg)
+        s = cfg.ssm if cfg.family == "ssm" or cfg.hybrid_parallel_ssm \
+            else None
+        # with one group of B and C, which every head reads
+        self.ssm = s is not None and s.n_groups == 1 and \
+            s.n_heads(cfg.d_model) % m == 0
+        self._index = {}
+        if self.ssm:
+            self._plan_ssm(s, cfg.d_model)
 
     def _plan_kv_gather(self, cfg) -> None:
         """The KV heads this rank's query heads read, from ``wk``/``wv``
@@ -272,6 +315,29 @@ class TensorParallel:
                 k - lo != i // per for i, k in enumerate(kv_of)):
             self._kv_index = torch.tensor([k - lo for k in kv_of])
 
+    def _plan_ssm(self, s, d_model: int) -> None:
+        """The rank's SSM heads ``[r * nh / m, (r + 1) * nh / m)`` and the
+        conv channels and ``in_proj`` columns they read: the x channels
+        of those heads and B and C whole (``_ssm_conv``), and z, those
+        channels and the heads' dt (``_ssm_cols``), in ``in_proj``'s
+        order."""
+        din, hp = s.d_inner(d_model), s.head_dim
+        gn = s.n_groups * s.d_state
+        self.ssm_heads = s.n_heads(d_model) // self.size
+        h0 = self.rank * self.ssm_heads
+        x = torch.arange(h0 * hp, (h0 + self.ssm_heads) * hp)
+        self._ssm_conv = torch.cat([x, torch.arange(din, din + 2 * gn)])
+        dt = 2 * din + 2 * gn + h0
+        self._ssm_cols = torch.cat([x, din + self._ssm_conv,
+                                    torch.arange(dt, dt + self.ssm_heads)])
+
+    def _on_device(self, name: str, device) -> torch.Tensor:
+        """Index tensor ``name`` on ``device``, copied there once."""
+        key = (name, device)
+        if key not in self._index:
+            self._index[key] = getattr(self, name).to(device)
+        return self._index[key]
+
     def on(self, part: str) -> Optional["TensorParallel"]:
         return self if getattr(self, part) else None
 
@@ -285,6 +351,8 @@ class TensorParallel:
         ps = "/".join(str(k) for k in path)
         for pat, part, dim in _SPLITS:
             if re.search(pat, ps):
+                if getattr(self, part) and dim is None:
+                    return Replicate(), Partial()
                 if getattr(self, part):
                     return Shard(dim), Shard(dim)
                 if part == "kv" and self.heads:
@@ -305,6 +373,11 @@ class TensorParallel:
 
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         return _all_reduce(x, op, self.group)
+
+    def sum_over(self, x: torch.Tensor) -> torch.Tensor:
+        """A sum over ``model`` that every rank's outputs depend on:
+        all-reduced forward and backward (:class:`_SumOver`)."""
+        return _SumOver.apply(x, self.group)
 
     def gather_heads(self, q: torch.Tensor) -> torch.Tensor:
         """``(B, S, n_heads / model, hd)`` -> every rank's heads, in
@@ -361,6 +434,25 @@ class TensorParallel:
         lo, hi = (c // self.head_dim for c in self._kv_cols)
         return self.expand_kv(t[:, :, lo:hi])
 
+    def ssm_shard(self, p):
+        """The Mamba-2 params this rank computes with: ``in_proj``'s
+        columns and the conv's channels narrowed to what its heads read
+        (:meth:`_plan_ssm`), ``in_proj`` laid out as the whole one with
+        the local ``d_inner`` and heads; the other leaves are the rank's
+        shards already.  A narrowed leaf's gradient is zero where the
+        rank's heads do not read it and partial on B and C
+        (:meth:`placements`: ``Partial()``)."""
+        cols = self._on_device("_ssm_cols", p["conv_w"].device)
+        ch = self._on_device("_ssm_conv", p["conv_w"].device)
+        return {**p, "in_proj": {"w": p["in_proj"]["w"].index_select(1, cols)},
+                "conv_w": p["conv_w"].index_select(1, ch),
+                "conv_b": p["conv_b"].index_select(0, ch)}
+
+    def ssm_channels(self, t: torch.Tensor) -> torch.Tensor:
+        """Conv inputs ``(..., conv_ch)`` of every channel -> the rank's
+        (:meth:`ssm_shard`'s conv layout)."""
+        return t.index_select(-1, self._on_device("_ssm_conv", t.device))
+
     def fake_quant_rows(self, w: torch.Tensor, pc) -> torch.Tensor:
         """``fake_quant(W^T)^T`` (the last two dims swapped) of a
         row-parallel ``W`` ``(..., d_in, d_out)`` with ``d_in`` split
@@ -416,10 +508,7 @@ class TensorParallel:
 
 def for_step(cfg, mesh) -> Optional[TensorParallel]:
     """A step's context on ``mesh``, or ``None`` for the FSDP route (the
-    families outside ``"dense"``/``"vlm"``/``"moe"``, a hybrid config, a
-    mesh without a ``model`` axis)."""
-    if (cfg.family not in ("dense", "vlm", "moe")
-            or cfg.hybrid_parallel_ssm
-            or "model" not in (mesh.mesh_dim_names or ())):
+    audio family, a mesh without a ``model`` axis)."""
+    if cfg.family == "audio" or "model" not in (mesh.mesh_dim_names or ()):
         return None
     return TensorParallel(cfg, mesh)

@@ -9,18 +9,19 @@ mesh (DTensors, ``distributed.sharding.distribute``): the counterpart of
 JAX's pjit'd step, on one of two routes (:func:`_sharded_value_and_grad`):
 
 * tensor-parallel (``make_train_step(tensor_parallel=True)``, which the
-  dry run and ``chip_smoke.py`` ask for), for the ``"dense"``, ``"vlm"``
-  and ``"moe"`` families (olmo-1b, stablelm-1.6b, gemma2-2b,
-  internlm2-20b, paligemma-3b, granite-moe-3b-a800m,
-  moonshot-v1-16b-a3b): each param is gathered over the batch's mesh
-  dims and keeps its ``model`` split, and the loss runs on the rank's
-  shards through ``distributed.tensor_parallel`` (column/row-parallel
-  linears, head-split attention, experts split on ``d_ff_expert``,
-  vocab-split embedding and cross-entropy), as XLA's partitioner splits
-  JAX's step;
-* FSDP, for the SSM, hybrid and audio families (mamba2, hymba,
-  whisper), meshes without ``model`` and every family without
-  ``tensor_parallel=True``: each param is gathered whole and the whole
+  dry run and ``chip_smoke.py`` ask for), for the ``"dense"``, ``"vlm"``,
+  ``"moe"``, ``"ssm"`` and ``"hybrid"`` families (olmo-1b,
+  stablelm-1.6b, gemma2-2b, internlm2-20b, paligemma-3b,
+  granite-moe-3b-a800m, moonshot-v1-16b-a3b, mamba2-1.3b, hymba-1.5b):
+  each param is gathered over the batch's mesh dims and keeps its
+  ``model`` split, and the loss runs on the rank's shards through
+  ``distributed.tensor_parallel`` (column/row-parallel linears,
+  head-split attention, experts split on ``d_ff_expert``, the Mamba-2
+  mixer's heads split, vocab-split embedding and cross-entropy), as
+  XLA's partitioner splits JAX's step;
+* FSDP, for the audio family (whisper), meshes without ``model`` and
+  every family without ``tensor_parallel=True``: each param is gathered
+  whole and the whole
   loss runs on every rank, so every rank's forward is the unsharded
   step's, bit for bit, on its rows (but for the MoE aux loss's batch
   means, below).  A split contraction rounds otherwise: on a (1, 1)
@@ -45,7 +46,7 @@ there is no rounding to keep bit-equal, so they take the
 tensor-parallel route wherever the family and mesh allow it
 (``tensor_parallel.for_step`` is not ``None``), and FSDP elsewhere:
 
-* tensor-parallel, for the dense, VLM and MoE families on a mesh with
+* tensor-parallel, for every family but the audio one on a mesh with
   ``model``: each param keeps its ``model`` split, as in the train
   step, the model runs on the rank's shards and the KV cache stays
   where ``sharding.cache_entry_spec`` puts ``model``: split by KV heads,
@@ -53,8 +54,12 @@ tensor-parallel route wherever the family and mesh allow it
   routes); the logits come out vocab-split.  A packed (INT4) cache
   split by sequence is the one exception: a decode step gathers each
   of its layers over ``model`` (:class:`_LayerRows`) and attends whole,
-  as ``kv_attention`` returns no log-sum-exp to merge;
-* FSDP, for the other families, as in the train step: every param
+  as ``kv_attention`` returns no log-sum-exp to merge.  A Mamba-2
+  layer's state is the rank's heads' where they split and its conv
+  inputs are whole on the rank (:func:`_model_at`); an entry whose
+  spec splits it otherwise (the conv inputs' contiguous channel split,
+  a state split on ``hp``) is read through :class:`_LayerRows`;
+* FSDP, for the audio family, as in the train step: every param
   gathered whole and the whole model on the rank's rows; a decode step
   gathers each cache layer over ``model`` for its rows.
 
@@ -270,6 +275,20 @@ def _rows_at(rows, dim: int, model=None, mesh=None) -> tuple:
 _KV_AT = {"heads": Shard(3), "seq": Shard(2), "whole": Replicate()}
 
 
+def _model_at(tp, key: str):
+    """The ``model`` placement of the rank's share of cache entry ``key``
+    on the tensor-parallel route: K/V by ``tp.cache``; an SSM state
+    ``(L, B, nh, hp, N)`` split by heads where the mixer's heads split,
+    else whole; the conv inputs whole (the mixer gathers their x
+    channels: their spec's contiguous channel split is not the rank's
+    heads')."""
+    if key == "ssm":
+        return Shard(2) if tp.ssm else Replicate()
+    if key == "conv":
+        return Replicate()
+    return _KV_AT[tp.cache]
+
+
 def _kv_route(mesh, shape) -> str:
     """Where ``cache_entry_spec`` puts ``model`` on a stacked K/V entry
     of ``shape`` ``(L, B, S, K, ...)``: ``"heads"``, ``"seq"`` or
@@ -304,7 +323,8 @@ def _place_serve_out(cfg, mesh, rows, logits, cache, tp=None):
             continue
         at = (tuple(Replicate() for _ in rows) if t.ndim == 0 else
               _rows_at(rows, 0) if key == "len" else
-              _rows_at(rows, 1, _KV_AT[tp.cache] if split else None, mesh))
+              _rows_at(rows, 1, _model_at(tp, key) if split else None,
+                       mesh))
         out[key] = place(t, at, lambda shape, key=key: shd.cache_entry_spec(
             key, shape, mesh, dp_axes(mesh)))
     return out_logits, out
@@ -324,10 +344,11 @@ def _sharded_prefill(mb, cfg, params, batch):
     if tp is None:
         full = unflatten_like(params, _held(params, mesh, None))
         return _place_serve_out(cfg, mesh, rows, *mb.prefill(full, local))
-    tp.cache = _kv_route(mesh, (cfg.n_layers, first.shape[0],
-                                batch["tokens"].shape[1]
-                                + cfg.vision_prefix_len, cfg.n_kv,
-                                cfg.head_dim))
+    if not cfg.is_attention_free:
+        tp.cache = _kv_route(mesh, (cfg.n_layers, first.shape[0],
+                                    batch["tokens"].shape[1]
+                                    + cfg.vision_prefix_len, cfg.n_kv,
+                                    cfg.head_dim))
     held = unflatten_like(params, _held(params, mesh, tp))
     logits, cache = transformer.prefill(
         held, cfg, local["tokens"], local.get("vision_embeds"), tp=tp)
@@ -347,7 +368,7 @@ def _sharded_decode(mb, cfg, params, cache, tokens, kv_len):
     mesh = leaves(params)[0].device_mesh
     rows = tokens.placements
     tp = tp_for_step(cfg, mesh)
-    if tp is not None:
+    if tp is not None and "k" in cache:
         tp.cache = _kv_route(mesh, tuple(cache["k"].shape))
         if tp.cache == "seq" and cfg.kv_cache_bits != 16:
             tp.cache = "whole"
@@ -358,7 +379,7 @@ def _sharded_decode(mb, cfg, params, cache, tokens, kv_len):
             local[key] = (t.to_local() if t.ndim == 0 else
                           t.redistribute(mesh, _rows_at(rows, 0)).to_local())
             continue
-        at = _rows_at(rows, 1, _KV_AT[tp.cache] if tp is not None else
+        at = _rows_at(rows, 1, _model_at(tp, key) if tp is not None else
                       None, mesh)
         if tp is not None and tuple(t.placements) == at:
             local[key] = t.to_local()

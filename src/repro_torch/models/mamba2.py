@@ -12,6 +12,13 @@ The in/out projections go through
 :func:`~repro_torch.models.layers.linear` (``packed_qmatmul`` when
 packed); the depthwise causal conv, the scan and the gated norm are plain
 PyTorch, as the JAX package leaves them to XLA.
+
+``tp=`` (the sharded steps' ``distributed.tensor_parallel`` context,
+where the heads divide the mesh's ``model`` axis) runs the rank's heads,
+as XLA splits JAX's pjit'd mixer: ``in_proj`` and the conv narrowed to
+the z, x and dt of those heads with B and C whole, the scan on those
+heads, the gated norm's mean reduced over ``model``, ``out_proj``
+row-parallel.
 """
 
 from __future__ import annotations
@@ -62,9 +69,15 @@ def mamba2_init(gen: torch.Generator, d_model: int, cfg: SSMConfig, dtype,
     }
 
 
-def _split_zxbcdt(z_x_b_c_dt, d_model, cfg: SSMConfig):
-    din = cfg.d_inner(d_model)
-    nh = cfg.n_heads(d_model)
+def _widths(cfg: SSMConfig, d_model: int, tp) -> Tuple[int, int]:
+    """(d_inner, heads) the mixer runs: the whole ones, or with ``tp``
+    the rank's."""
+    if tp is None:
+        return cfg.d_inner(d_model), cfg.n_heads(d_model)
+    return tp.ssm_heads * cfg.head_dim, tp.ssm_heads
+
+
+def _split_zxbcdt(z_x_b_c_dt, din, nh, cfg: SSMConfig):
     g_n = cfg.n_groups * cfg.d_state
     z = z_x_b_c_dt[..., :din]
     xbc = z_x_b_c_dt[..., din:2 * din + 2 * g_n]
@@ -85,11 +98,29 @@ def _causal_conv(xbc, conv_w, conv_b):
     return F.silu(out + conv_b[None, None])
 
 
-def _gated_norm(y, z, g, eps=1e-6):
-    """RMSNorm(y * silu(z)) * g, mamba2's gated output norm."""
+def _gated_norm(y, z, g, eps=1e-6, tp=None):
+    """RMSNorm(y * silu(z)) * g, mamba2's gated output norm.  With ``tp``
+    the channels are the rank's heads' and the mean runs over the whole
+    ``d_inner``: each rank's mean over its channels, weighed by its share
+    ``1 / model``, summed over ``model`` (:meth:`~repro_torch.distributed.
+    tensor_parallel.TensorParallel.sum_over`).  On a one-rank ``model``
+    axis that is ``torch.mean`` times 1.0 and a sum over one rank: the
+    unsharded arithmetic, bit for bit."""
     yf = (y * F.silu(z.to(torch.float32))).to(torch.float32)
-    r = yf * torch.rsqrt(torch.mean(yf * yf, -1, keepdim=True) + eps)
+    ms = torch.mean(yf * yf, -1, keepdim=True)
+    if tp is not None:
+        ms = tp.sum_over(ms * (1.0 / tp.size))
+    r = yf * torch.rsqrt(ms + eps)
     return (r * g.to(torch.float32)).to(y.dtype)
+
+
+def _whole_conv(raw, din, tp):
+    """The rank's raw conv inputs ``(..., din + 2 g N)`` (its heads' x
+    channels, B and C) -> every channel's, the x channels gathered over
+    ``model``; ``raw`` itself without ``tp``."""
+    if tp is None:
+        return raw
+    return torch.cat([tp.gather_last(raw[..., :din]), raw[..., din:]], -1)
 
 
 def ssd_chunked(
@@ -157,18 +188,31 @@ def mamba2_apply(
     pc: Optional[PrecisionConfig] = None,
     mode: str = "fake",
     return_state: bool = False,
+    tp=None,
+    copied: bool = False,
 ):
     """Full mixer forward (train / prefill).  With ``return_state`` also
     returns the decode cache {"conv": the last conv_width - 1 raw conv
     inputs, "ssm": the final state}.  The chunk is
-    ``min(chunk_size, L)``."""
-    din = cfg.d_inner(d_model)
-    nh = cfg.n_heads(d_model)
+    ``min(chunk_size, L)``.
+
+    ``tp`` (a ``TensorParallel`` whose ``ssm`` flag is set) runs the
+    rank's heads: ``p`` holds its shards of ``out_proj``'s rows,
+    ``A_log``, ``dt_bias``, ``D`` and ``norm_g``, and ``in_proj`` and the
+    conv whole, which :meth:`~repro_torch.distributed.tensor_parallel.
+    TensorParallel.ssm_shard` narrows; the input passes ``copy_in``
+    (unless ``copied``: the caller passed it already), the conv and the
+    scan need no collective, the gated norm sums over ``model`` and
+    ``out_proj`` is row-parallel.  The state returned is the rank's
+    heads', the conv inputs every channel's."""
+    din, nh = _widths(cfg, d_model, tp)
     g, n = cfg.n_groups, cfg.d_state
     bb, n_len, _ = x.shape
+    if tp is not None:
+        x, p = x if copied else tp.copy_in(x), tp.ssm_shard(p)
 
     zxbcdt = linear(p["in_proj"], x, pc, mode)
-    z, xbc_raw, dt = _split_zxbcdt(zxbcdt, d_model, cfg)
+    z, xbc_raw, dt = _split_zxbcdt(zxbcdt, din, nh, cfg)
     xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
     xs = xbc[..., :din].reshape(bb, n_len, nh, cfg.head_dim)
     b_in = xbc[..., din:din + g * n].reshape(bb, n_len, g, n)
@@ -180,11 +224,11 @@ def mamba2_apply(
     y, h_final = ssd_chunked(xs, dt, a, b_in, c_in, chunk)
     y = y + p["D"][None, None, :, None] * xs.to(torch.float32)
     y = y.reshape(bb, n_len, din).to(x.dtype)
-    y = _gated_norm(y, z, p["norm_g"])
-    out = linear(p["out_proj"], y, pc, mode)
+    y = _gated_norm(y, z, p["norm_g"], tp=tp)
+    out = linear(p["out_proj"], y, pc, mode, tp=tp)
     if return_state:
-        return out, {"conv": xbc_raw[:, -(cfg.conv_width - 1):],
-                     "ssm": h_final}
+        return out, {"conv": _whole_conv(
+            xbc_raw[:, -(cfg.conv_width - 1):], din, tp), "ssm": h_final}
     return out
 
 
@@ -215,21 +259,27 @@ def mamba2_decode_step(
     *,
     pc: Optional[PrecisionConfig] = None,
     mode: str = "fake",
+    tp=None,
 ):
-    """One token: returns (out (B, 1, d_model), new cache)."""
-    din = cfg.d_inner(d_model)
-    nh = cfg.n_heads(d_model)
+    """One token: returns (out (B, 1, d_model), new cache).  ``tp`` as in
+    :func:`mamba2_apply`: the cache's state is the rank's heads', its
+    conv inputs every channel's, in and out."""
+    din, nh = _widths(cfg, d_model, tp)
     g, n = cfg.n_groups, cfg.d_state
     hpg = nh // g
     bb = x.shape[0]
+    if tp is not None:
+        x, p = tp.copy_in(x), tp.ssm_shard(p)
 
     zxbcdt = linear(p["in_proj"], x[:, 0], pc, mode)        # (B, dproj)
-    z, xbc, dt = _split_zxbcdt(zxbcdt, d_model, cfg)
+    z, xbc, dt = _split_zxbcdt(zxbcdt, din, nh, cfg)
     # the conv over the cached W-1 inputs and the current one
-    win = torch.cat([cache["conv"], xbc[:, None]], dim=1)   # (B, W, C)
+    conv = cache["conv"] if tp is None else tp.ssm_channels(cache["conv"])
+    win = torch.cat([conv, xbc[:, None]], dim=1)            # (B, W, C)
     conv_out = torch.sum(win * p["conv_w"][None], dim=1) + p["conv_b"][None]
     xbc_t = F.silu(conv_out)
-    new_conv = win[:, 1:]
+    new_conv = torch.cat([cache["conv"][:, 1:],
+                          _whole_conv(xbc, din, tp)[:, None]], dim=1)
 
     xs = xbc_t[..., :din].reshape(bb, nh, cfg.head_dim)
     b_in = xbc_t[..., din:din + g * n].reshape(bb, g, n)
@@ -246,6 +296,6 @@ def mamba2_decode_step(
     y = torch.einsum("bhpn,bhn->bhp", h, ch)
     y = y + p["D"][None, :, None] * xs.to(torch.float32)
     y = y.reshape(bb, din).to(x.dtype)
-    y = _gated_norm(y, z, p["norm_g"])
-    out = linear(p["out_proj"], y, pc, mode)[:, None]       # (B, 1, d)
+    y = _gated_norm(y, z, p["norm_g"], tp=tp)
+    out = linear(p["out_proj"], y, pc, mode, tp=tp)[:, None]  # (B, 1, d)
     return out, {"conv": new_conv, "ssm": h}

@@ -28,11 +28,13 @@ recomputes the rest, in place of ``jax.checkpoint`` and its
 ``dots_with_no_batch_dims_saveable`` policy.
 
 ``loss_fn(tp=)``, ``prefill(tp=)`` and ``decode_step(tp=)`` run the
-dense and MoE layers tensor-parallel over a mesh's ``model`` axis
-(``distributed.tensor_parallel``: the params are the rank's shards, the
-sharded steps pass the context; a serve step's cache is the rank's
-share, split as ``tp.cache`` says); with ``tp=None`` nothing of this
-module changes.
+dense, MoE, SSM and hybrid layers tensor-parallel over a mesh's
+``model`` axis (``distributed.tensor_parallel``: the params are the
+rank's shards, the sharded steps pass the context; a serve step's K/V
+cache is the rank's share, split as ``tp.cache`` says, its SSM state
+the rank's heads' where they split and its conv inputs whole).  Each
+mixer's output is reduced over ``model`` before the hybrid mixes them.
+With ``tp=None`` nothing of this module changes.
 
 Forward modes:
   forward_hidden  full sequence (train / prefill), chunked flash-style
@@ -166,7 +168,7 @@ def _attn_scale(cfg: ArchConfig) -> float:
 
 def _attn_block(lp, cfg: ArchConfig, x, *, window: int, prefix_len: int = 0,
                 q_offset=0, cache_kv=None, cache_len=None, ragged=False,
-                kv_len: Optional[int] = None, tp=None):
+                kv_len: Optional[int] = None, tp=None, copied=False):
     """Self-attention (full sequence or decode).  Returns (out, (k, v)).
     ``prefix_len`` leading positions are attended bidirectionally (the
     VLM prefix) in the full-sequence path.
@@ -180,7 +182,8 @@ def _attn_block(lp, cfg: ArchConfig, x, *, window: int, prefix_len: int = 0,
     whole) and ``wo`` is row-parallel; elsewhere the heads run whole.  A
     serve step's ``tp.cache`` says which share of the cache the rank
     holds: the full-sequence path then returns that share as (k, v),
-    and a decode step writes and attends over it.
+    and a decode step writes and attends over it.  ``copied``: ``x`` has
+    passed ``tp.copy_in`` already.
     """
     pc, mode = cfg.precision, cfg.quant_mode
     b, s, _ = x.shape
@@ -190,7 +193,7 @@ def _attn_block(lp, cfg: ArchConfig, x, *, window: int, prefix_len: int = 0,
     route = tp.cache if tp is not None else None
     kvp = lp                # the weights of the K/V computed here
     if split:
-        x = tp.copy_in(x)
+        x = x if copied else tp.copy_in(x)
         nh = tp.n_heads
         # a decode step over a cache of every KV head computes them all
         if cache_kv is None or route == "heads":
@@ -347,7 +350,9 @@ def _mlp_block(lp, cfg: ArchConfig, x, *, decode=False, tp=None):
 
 def _mix(lp, parts, dtype):
     """One mixer's output, or the hybrid's per-channel mix of attention
-    and SSM: ``(attn * mix[0] + ssm * mix[1]) * 0.5``."""
+    and SSM: ``(attn * mix[0] + ssm * mix[1]) * 0.5``.  On the
+    tensor-parallel route both parts are whole: each mixer's row-parallel
+    output projection reduced them over ``model``."""
     if len(parts) == 1:
         return parts[0]
     mix = lp["mix_scale"].to(dtype)
@@ -399,13 +404,23 @@ def _block_full(lp, cfg: ArchConfig, x, window: int, emit=None, tp=None):
     with ``emit`` (a dict), also puts the layer's cache entries there:
     ``k``/``v`` (quantized when ``kv_cache_bits != 16``) and the SSM's
     ``conv``/``ssm``.  ``tp``: the tensor-parallel context (train, and
-    a prefill's, whose emitted K/V are the rank's share of the cache)."""
+    a prefill's, whose emitted K/V are the rank's share of the cache,
+    its SSM state the rank's heads' where they split, its conv inputs
+    whole)."""
     pc, mode = cfg.precision, cfg.quant_mode
     h = L.apply_norm(cfg.norm, lp["ln1"], x)
     parts = []
+    ssm_tp = tp.on("ssm") if tp is not None and "ssm" in lp else None
+    # the hybrid's attention and mixer, both split, read one copy_in node
+    # of h: its gradient sums both readers' before one all-reduce, as the
+    # unsharded graph sums them at h (a one-rank step stays bit-equal)
+    copied = ssm_tp is not None and cfg.family != "ssm" and tp.heads
+    if copied:
+        h = tp.copy_in(h)
     if cfg.family != "ssm":
         a, (k, v) = _attn_block(lp["attn"], cfg, h, window=window,
-                                prefix_len=cfg.vision_prefix_len, tp=tp)
+                                prefix_len=cfg.vision_prefix_len, tp=tp,
+                                copied=copied)
         parts.append(a)
         if emit is not None and cfg.kv_cache_bits != 16:
             emit["k"], emit["k_scale"] = kv_ref.quantize_kv(
@@ -417,10 +432,11 @@ def _block_full(lp, cfg: ArchConfig, x, window: int, emit=None, tp=None):
     if "ssm" in lp:
         if emit is None:
             s = M2.mamba2_apply(lp["ssm"], h, cfg.ssm, cfg.d_model, pc=pc,
-                                mode=mode)
+                                mode=mode, tp=ssm_tp, copied=copied)
         else:
             s, st = M2.mamba2_apply(lp["ssm"], h, cfg.ssm, cfg.d_model,
-                                    pc=pc, mode=mode, return_state=True)
+                                    pc=pc, mode=mode, return_state=True,
+                                    tp=ssm_tp, copied=copied)
             emit["conv"], emit["ssm"] = st["conv"], st["ssm"]
         parts.append(s)
     return _residual_tail(lp, cfg, x, _mix(lp, parts, x.dtype), tp=tp)
@@ -591,8 +607,9 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, *, ragged=False,
     no length.
 
     ``tp``: the tensor-parallel context of the sharded decode step; the
-    logits are then the rank's vocab slice where the vocab splits, and
-    the cache the rank's share (``tp.cache``)."""
+    logits are then the rank's vocab slice where the vocab splits, the
+    K/V cache the rank's share (``tp.cache``), the SSM state the rank's
+    heads' where they split and the conv inputs whole."""
     check_supported(cfg)
     pc, mode = cfg.precision, cfg.quant_mode
     x = _embed_tokens(params, cfg, tokens, tp=tp)   # a gather: the same
@@ -628,7 +645,8 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, *, ragged=False,
             s, st = M2.mamba2_decode_step(
                 lp["ssm"], h, {"conv": cache["conv"][i],
                                "ssm": cache["ssm"][i]},
-                cfg.ssm, cfg.d_model, pc=pc, mode=mode)
+                cfg.ssm, cfg.d_model, pc=pc, mode=mode,
+                tp=tp and tp.on("ssm"))
             cache["conv"][i] = st["conv"]
             cache["ssm"][i] = st["ssm"]
             parts.append(s)

@@ -1,7 +1,9 @@
 """One rank of a multi-rank case of ``test_torch_distributed.py`` (and
 of ``test_torch_tensor_parallel.py``: :func:`case_tp`; of
 ``test_torch_tp_serve.py``: :func:`case_tp_serve`; of
-``test_torch_tp_moe.py``: :func:`case_tp_moe`).
+``test_torch_tp_moe.py``: :func:`case_tp_moe`; of
+``test_torch_tp_ssm.py``: :func:`case_tp_ssm`,
+:func:`case_tp_one_rank`).
 
 Run as ``python tests/_torch_dist_ranks.py CASE RANK WORLD DIR``: joins a
 gloo group through ``file://DIR/store``, reads the case's inputs from
@@ -258,7 +260,7 @@ def _serve_run(mesh, cfg, params, placed, batch, steps_, pad=2):
             logits, mine = decode(placed, mine, shd.place(
                 toks, shd.NamedSharding(mesh, shd.batch_spec(
                     "tokens", toks.shape, mesh))),
-                kv_len=padded["k"].shape[2])
+                kv_len=padded["k"].shape[2] if "k" in padded else None)
         res[f"decode{t}"] = checks(logits, mine, ref_logits, ref)
         outs[f"decode{t}"] = whole(logits, mine)
     return res, outs
@@ -334,6 +336,7 @@ def case_tp_serve(rank, world, inp):
                 "routes": [c and c.cache for c in contexts],
                 "heads": [c and c.heads for c in contexts],
                 "experts": [c and c.experts for c in contexts],
+                "ssm": [c and c.ssm for c in contexts],
                 "gathered": list(gathered),
                 "split": dict(_SEEN), "routed": list(_ROUTED),
                 "outs": outs if rank == 0 and name in inp["keep"] else None}
@@ -441,9 +444,83 @@ def case_tp_moe(rank, world, inp):
             "serve": case_tp_serve(rank, world, inp["serve"])}
 
 
+def case_tp_ssm(rank, world, inp):
+    """``tests/test_torch_tp_ssm.py``: the SSM and hybrid families' train
+    cases (:func:`case_tp` on ``inp["train"]``) and serve cases
+    (:func:`case_tp_serve` on ``inp["serve"]``)."""
+    return {"train": case_tp(rank, world, inp["train"]),
+            "serve": case_tp_serve(rank, world, inp["serve"])}
+
+
+def case_tp_one_rank(rank, world, inp):
+    """``tests/test_torch_tp_ssm.py``: on a one-rank group and its (1, 1)
+    mesh, ``inp["cfg"]``'s tensor-parallel train step (2 steps) and its
+    prefill and 2 decode steps, from params placed as JAX's specs say,
+    and the unsharded ones from the same params: each run's losses,
+    params after the steps, and logits and cache entries."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.launch import steps as St
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.api import get_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.tree import map_tree
+
+    cfg, batch, steps_ = inp["cfg"], inp["batch"], inp["steps"]
+    mesh = make_host_mesh(1)
+    tp = TP.for_step(cfg, mesh)
+    flags = {k: getattr(tp, k) for k in ("heads", "kv", "mlp", "ssm",
+                                         "vocab")}
+
+    def put(t, spec):
+        return shd.place(t, shd.NamedSharding(mesh, spec))
+
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    got = {}
+    for placed in (False, True):
+        params = get_model(cfg).init(0, device="cpu")
+        if placed:
+            params = shd.distribute(params, shd.to_shardings(
+                shd.param_specs(params, mesh), mesh))
+        serve = map_tree(torch.clone, params)   # the train step updates
+        #                                         params in place
+        b = {k: put(v, shd.batch_spec(k, v.shape, mesh)) if placed else v
+             for k, v in batch.items()}
+        step = St.make_train_step(cfg, opt.OptConfig(**inp["lr"]),
+                                  tensor_parallel=True)
+        state, losses = opt.init(params), []
+        for _ in range(2):
+            params, state, m = step(params, state, b)
+            losses.append(float(m["loss"]))
+        out = {"losses": losses,
+               "params": [whole(p).clone() for p in leaves(params)]}
+        with torch.no_grad():
+            logits, cache = St.make_prefill_step(cfg)(
+                serve, {"tokens": b["tokens"]})
+            cache = {k: (torch.nn.functional.pad(
+                whole(v), (0, 0, 0, 0, 0, 2)) if k in ("k", "v") else
+                whole(v).clone()) for k, v in cache.items()}
+            if placed:
+                cache = {k: put(v, shd.cache_entry_spec(k, v.shape, mesh))
+                         for k, v in cache.items()}
+            out["serve"] = [whole(logits)]
+            decode = St.make_decode_step(cfg)
+            for toks in steps_:
+                t = put(toks, shd.batch_spec("tokens", toks.shape, mesh)) \
+                    if placed else toks
+                logits, cache = decode(serve, cache, t)
+                out["serve"].append(whole(logits))
+            out["serve"] += [whole(v) for v in cache.values()]
+        got["tp" if placed else "unsharded"] = out
+    return {"flags": flags, **got}
+
+
 CASES = {"cp": case_cp, "ef": case_ef, "pipe": case_pipe, "step": case_step,
          "restore": case_restore, "serve": case_serve, "tp": case_tp,
-         "tp_serve": case_tp_serve, "tp_moe": case_tp_moe}
+         "tp_serve": case_tp_serve, "tp_moe": case_tp_moe,
+         "tp_ssm": case_tp_ssm, "tp_one_rank": case_tp_one_rank}
 
 
 def main(case, rank, world, d):

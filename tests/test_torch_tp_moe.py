@@ -80,6 +80,7 @@ from test_torch_tensor_parallel import LR, _batch, _check, _port
 from test_torch_tensor_parallel import _jax as _jax_train
 from test_torch_tp_serve import _inputs
 from test_torch_tp_serve import _jax as _jax_serve
+from test_torch_tp_ssm import SSM_INTENDED
 
 # the first multi-threaded CPU exp of a process can be 1e-4 off (see
 # test_torch_mamba2.py); one parallel exp at import takes it
@@ -308,8 +309,10 @@ def test_tp_moe_serve_against_jax(runs, name):
 #: ``_SPLITS`` that should match it and the dim it splits; kinds not
 #: listed match no pattern.  whisper's leaves match the attention and
 #: dense MLP rules (as JAX's rules match them) but whisper takes the FSDP
-#: route, so they are never placed by them
+#: route, so they are never placed by them.  The Mamba-2 leaves' rows:
+#: ``test_torch_tp_ssm.py``, which checks their shapes
 INTENDED = {
+    **SSM_INTENDED,
     "embed": ("vocab", 0),
     "lm_head/w": ("vocab", 1),
     "vision_proj/w": ("vision", 1),
@@ -353,6 +356,8 @@ def test_split_patterns_match_the_intended_leaves():
                 continue
             matched.add(_kind(ps))
             part, dim = want
+            if part == "ssm":
+                continue
             assert t.ndim == (3 if part == "experts" else
                               1 if ps.endswith("/b") else 2), (ps, t.shape)
             if part == "experts":

@@ -203,7 +203,8 @@ def _dryrun_decode(tmp_path, arch):
     """``arch``'s ``decode_32k`` at depth 2 on the fake 16 x 16 mesh (in
     a subprocess: the fake group is process-global): the cell's record,
     its FLOPs by op on rank 0 (``mine``) and the unsharded step's on the
-    cell (``whole``), and the all-gathers over ``model``."""
+    cell (``whole``), the matmul FLOPs of each whose output spans the
+    vocab (``head``: the logits), and the all-gathers over ``model``."""
     code = f"""
         import collections
         import json
@@ -219,7 +220,14 @@ def _dryrun_decode(tmp_path, arch):
         D.RESULTS_DIR = Path({str(tmp_path)!r})
         groups, gathers = {{}}, []
         mine, whole = collections.Counter(), collections.Counter()
+        head = collections.Counter()
         place_cell, charge = D.place_cell, D.CellWalker.charge
+        vocab = get_config({arch!r}).vocab
+
+        def logits(func, out):
+            return func.overloadpacket.__name__ in (
+                "mm", "addmm", "bmm", "baddbmm") and \
+                getattr(out, "shape", (0,))[-1] == vocab
 
         def placed(cfg, shape, mesh):
             groups["model"] = mesh.get_group("model").group_name
@@ -229,12 +237,16 @@ def _dryrun_decode(tmp_path, arch):
             if func.overloadpacket.__name__.startswith("all_gather"):
                 gathers.append(args[2])
             mine[func.overloadpacket.__name__] += _op_flops(func, args, out)
+            if logits(func, out):
+                head["mine"] += _op_flops(func, args, out)
             return charge(self, func, args, out)
 
         class ByOp(_FlopCounter):
             def charge(self, func, args, out):
                 whole[func.overloadpacket.__name__] += _op_flops(
                     func, args, out)
+                if logits(func, out):
+                    head["whole"] += _op_flops(func, args, out)
                 super().charge(func, args, out)
 
         D.place_cell, D.CellWalker.charge = placed, counted
@@ -252,7 +264,7 @@ def _dryrun_decode(tmp_path, arch):
         print(json.dumps({{"rec": {{k: rec.get(k) for k in (
             "ok", "error", "flops_per_device", "n_devices",
             "collective_bytes")}}, "whole_total": counter.total,
-            "mine": mine, "whole": whole, "kv": [
+            "mine": mine, "whole": whole, "head": head, "kv": [
                 c.n_layers, shape.global_batch, shape.seq_len, c.n_kv,
                 c.head_dim],
             "model_gathers": sum(g == groups["model"] for g in gathers),
@@ -317,4 +329,35 @@ def test_dryrun_moe_decode_cell_splits_the_flops_over_256_ranks(tmp_path):
     assert whole["bmm"] > 0.5 * want     # the dense mix's expert products
     assert abs(got * n / want - 1) <= 0.1, (got * n, want)
     assert res["gathers"] > 0 and res["model_gathers"] == 0, res
+    assert rec["collective_bytes"]["all-reduce"] > 0
+
+
+def test_dryrun_ssm_decode_cell_splits_the_flops_over_256_ranks(tmp_path):
+    """mamba2-1.3b ``decode_32k`` at depth 2 on the fake 16 x 16 mesh: its
+    64 SSM heads split on 16, 4 a rank, whose z, x and dt with B and C
+    whole are 772 of ``in_proj``'s 8512 columns, and ``out_proj``'s rows
+    256 of 4096.  So the layers' matmul FLOPs (the logits excluded: the
+    50280-wide vocab does not divide 16 and runs whole, as JAX's rules
+    keep ``embed`` replicated) x 256 are the unsharded step's times 16 x
+    (772 + 256) / (8512 + 4096) = 1.30, within 2% (the scan's
+    ``einsum`` splits 256 ways); ``in_proj`` is gathered over ``model``
+    each layer."""
+    res = _dryrun_decode(tmp_path, "mamba2-1.3b")
+    rec, n = res["rec"], res["rec"]["n_devices"]
+    assert rec["ok"], rec["error"]
+    assert n == 256
+    cfg = configs.get_config("mamba2-1.3b")
+    s, m = cfg.ssm, 16
+    din, nh = s.d_inner(cfg.d_model), s.n_heads(cfg.d_model)
+    cols = 2 * din + 2 * s.n_groups * s.d_state + nh
+    mine_cols = 2 * din // m + 2 * s.n_groups * s.d_state + nh // m
+    want = m * (mine_cols + din // m) / (cols + din)
+    assert mine_cols == 772 and abs(want - 1.3046) < 1e-4
+    mine, whole, head = res["mine"], res["whole"], res["head"]
+    mm = ("mm", "addmm", "bmm", "baddbmm")
+    got, ref = (sum(c.get(k, 0) for k in mm) - head[key]
+                for c, key in ((mine, "mine"), (whole, "whole")))
+    assert head["mine"] * n == head["whole"] * m     # whole on each rank
+    assert abs(got * n / ref / want - 1) <= 0.02, (got * n / ref, want)
+    assert res["model_gathers"] > 0, res
     assert rec["collective_bytes"]["all-reduce"] > 0
