@@ -3094,13 +3094,23 @@ def snn_train_phase(dev, card):
 
 
 def _lm_batch(cfg, batch, seq, step, dev):
+    """A synthetic LM batch on ``dev``: tokens and labels, and for an
+    encoder-decoder (whisper) ``WHISPER_FRAMES`` stub frames a row
+    (standard normal, bf16, from seed ``step``)."""
+    import numpy as np
     import torch
 
     from repro_torch.data import synthetic
 
     b = synthetic.lm_batch(cfg.vocab, batch, seq, seed=0, step=step)
-    return {k: torch.from_numpy(v).to(dev, torch.int64)
-            for k, v in b.items()}
+    out = {k: torch.from_numpy(v).to(dev, torch.int64) for k, v in b.items()}
+    if cfg.encdec is not None:
+        out["frames"] = torch.as_tensor(np.random.default_rng(step)
+                                        .standard_normal((batch,
+                                                          WHISPER_FRAMES,
+                                                          cfg.d_model)),
+                                        dtype=torch.bfloat16, device=dev)
+    return out
 
 
 def train_phase(dev, card):
@@ -3430,10 +3440,10 @@ def _tp_train_vs_unsharded(dev, mesh, cfg, ocfg, batches, contexts):
     from torch.distributed.tensor import DTensor
 
     from repro_torch.distributed import sharding as shd
-    from repro_torch.models import transformer
+    from repro_torch.models.api import get_model
     from repro_torch.tree import leaves, map_tree
 
-    ref = transformer.init(0, cfg, device=dev)
+    ref = get_model(cfg).init(0, device=dev)
     sharded = shd.distribute(
         map_tree(lambda t: t.clone(), ref),
         shd.to_shardings(shd.param_specs(ref, mesh), mesh))
@@ -3449,7 +3459,7 @@ def _tp_train_vs_unsharded(dev, mesh, cfg, ocfg, batches, contexts):
     if len(contexts) != len(batches) or None in contexts:
         raise AssertionError(f"{cfg.name}: the sharded step took the FSDP "
                              f"route: {contexts}")
-    again = transformer.init(0, cfg, device=dev)
+    again = get_model(cfg).init(0, device=dev)
     again, again_l, _, _ = _train_run(cfg, ocfg, mesh, again, False,
                                       batches)
     sh_eq, sh_worst = _agree(sharded, ref)
@@ -3473,17 +3483,20 @@ def _tp_train_vs_unsharded(dev, mesh, cfg, ocfg, batches, contexts):
 def _tp_serve(dev, card, mesh, arch, layers=None):
     """The tensor-parallel serve steps on the (1, 1) mesh: ``arch`` at
     full width (bf16 params; ``layers`` deep, default its own depth), a
-    prefill of 8 x 512 tokens padded to 1024 and 32 decode steps of
+    prefill of 8 x 512 tokens padded to 1024 (whisper: 8 x
+    ``WHISPER_PROMPT`` tokens over 8 x ``WHISPER_FRAMES`` frames, padded
+    to ``WHISPER_MAX_LEN``) and 32 decode steps of
     ``make_prefill_step`` / ``make_decode_step`` (their tensor-parallel
     route) on params placed by ``to_shardings``, once over a bf16 KV
     cache and once over an INT4 one (once for an attention-free config,
-    which has no KV cache), against the unsharded ``prefill`` /
-    ``decode_step`` from the same params, fed the same (greedy) tokens:
-    logits and cache bit-equal, the SSM's ``conv`` and ``ssm`` entries
-    included (on one rank the KV-head split and the SSM-head split are
-    the unsharded arithmetic), the route's contexts asserted (one a
-    step, cache split by KV heads, SSM heads split where the config has
-    them), ``n_layers`` ``kv_attention`` launches a step on the INT4
+    which has no KV cache, and for whisper, whose cache is bf16),
+    against the unsharded ``prefill`` / ``decode_step`` from the same
+    params, fed the same (greedy) tokens: logits and cache bit-equal,
+    the SSM's ``conv`` and ``ssm`` entries and whisper's ``xk`` and
+    ``xv`` included (on one rank the KV-head split and the SSM-head
+    split are the unsharded arithmetic), the route's contexts asserted
+    (one a step, each cache split by KV heads, SSM heads split where the
+    config has them), ``n_layers`` ``kv_attention`` launches a step on the INT4
     route, and for a MoE config every router call's top-k experts equal
     to the unsharded run's; ms a decode step and peak memory of both.
     Returns (the INT4 route's decode launches under ``"dist tp <arch>
@@ -3499,17 +3512,25 @@ def _tp_serve(dev, card, mesh, arch, layers=None):
     from repro_torch.kernels.kv_attention import ops as kv_ops
     from repro_torch.launch import steps as St
     from repro_torch.models import moe as MOE
-    from repro_torch.models import transformer
+    from repro_torch.models.api import get_model
 
     base = get_config(arch)
     if layers is not None:
         base = dataclasses.replace(base, n_layers=layers)
-    params = transformer.init(0, base, device=dev)
+    mb = get_model(base)
+    params = mb.init(0, device=dev)
     placed = shd.distribute(params, shd.to_shardings(
         shd.param_specs(params, mesh), mesh))
-    b, s_len, max_len, n_steps = 8, 512, 1024, 32
-    toks = torch.as_tensor(np.random.default_rng(2).integers(
-        0, base.vocab, (b, s_len)), dtype=torch.int64, device=dev)
+    audio = base.encdec is not None
+    b, s_len, max_len, n_steps = (8, WHISPER_PROMPT, WHISPER_MAX_LEN, 32) \
+        if audio else (8, 512, 1024, 32)
+    rng = np.random.default_rng(2)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, base.vocab, (b, s_len)), dtype=torch.int64, device=dev)}
+    if audio:
+        batch["frames"] = torch.as_tensor(rng.standard_normal(
+            (b, WHISPER_FRAMES, base.d_model)), dtype=torch.bfloat16,
+            device=dev)
     contexts, for_step, router = [], St.tp_for_step, MOE._router
     routed = []
 
@@ -3540,10 +3561,10 @@ def _tp_serve(dev, card, mesh, arch, layers=None):
         with torch.no_grad():
             if sharded:
                 logits, pre = St.make_prefill_step(cfg)(placed, {
-                    "tokens": put(toks, lambda sh: shd.batch_spec(
-                        "tokens", sh, mesh))})
+                    k: put(v, lambda sh, k=k: shd.batch_spec(k, sh, mesh))
+                    for k, v in batch.items()})
             else:
-                logits, pre = transformer.prefill(params, cfg, toks)
+                logits, pre = get_model(cfg).prefill(params, batch)
             pre = {k: whole(v) for k, v in pre.items()}
             # the decode steps write the cache in place, and _pad_cache
             # passes the SSM entries through: decode a copy
@@ -3565,8 +3586,8 @@ def _tp_serve(dev, card, mesh, arch, layers=None):
                     logits, cache = step(placed, cache, put(
                         tok, lambda sh: shd.batch_spec("tokens", sh, mesh)))
                 else:
-                    logits, cache = transformer.decode_step(params, cfg,
-                                                            cache, tok)
+                    logits, cache = get_model(cfg).decode_step(
+                        params, cache, tok)
                 out.append(whole(logits))
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3 / n_steps
@@ -3580,14 +3601,16 @@ def _tp_serve(dev, card, mesh, arch, layers=None):
     ssm = base.ssm is not None
     St.tp_for_step, MOE._router = counted_for_step, recorded_router
     try:
-        for bits in (16,) if route is None else (16, 4):
+        for bits in (16,) if route is None or audio else (16, 4):
             cfg = dataclasses.replace(base, kv_cache_bits=bits)
             ref = run(cfg, False)
             contexts.clear()
             mine = run(cfg, True, ref[1])
             routes = [c and c.cache for c in contexts]
+            xroutes = [c and c.xcache for c in contexts]
             label = f"tensor-parallel serve {arch} (KV {bits})"
             if (routes != [route] * (1 + n_steps) or None in contexts
+                    or xroutes != [route if audio else None] * (1 + n_steps)
                     or any(c.ssm != ssm for c in contexts)):
                 raise AssertionError(f"{label}: routes {routes}, contexts "
                                      f"{contexts}")
@@ -3617,6 +3640,11 @@ def _tp_serve(dev, card, mesh, arch, layers=None):
             if ssm:
                 experts += (f", SSM heads split {contexts[-1].ssm} (cache "
                             f"entries {sorted(mine[3])})")
+            if audio:
+                kv = (f"bf16 self and cross ({WHISPER_FRAMES} frames, "
+                      f"{cfg.encdec.n_layers} encoder layers, route "
+                      f"{xroutes[0]}) KV")
+                experts += f" (cache entries {sorted(mine[3])})"
             print(f"distributed: {arch} full width ({cfg.n_layers} "
                   f"layers, d {cfg.d_model}, {cfg.dtype} params), "
                   f"{kv} cache, prefill {b} x {s_len} padded to "
@@ -3663,7 +3691,9 @@ def _tp_family(dev, card, mesh, arch, part, layers=None, serve_layers=None):
        (default all), against 3 unsharded steps and a second unsharded
        run under the olmo-1b case's gates (:func:`_tp_train_vs_unsharded`),
        the context made once a step with ``part`` split (``"experts"``:
-       the MoE's ``d_ff_expert``; ``"ssm"``: the Mamba-2 heads);
+       the MoE's ``d_ff_expert``; ``"ssm"``: the Mamba-2 heads;
+       ``"mlp"``: a dense FFN's ``d_ff``), over ``WHISPER_FRAMES``
+       frames a row for whisper;
     2. its prefill and decode steps at ``serve_layers`` (default all)
        over each KV cache it has (:func:`_tp_serve`): bit-equal,
        ``n_layers`` ``kv_attention`` launches a step on the INT4 route.
@@ -3751,7 +3781,11 @@ def distributed_phase(dev, card):
        and decode steps at 8 of its 32 layers against the unsharded ones
        (:func:`_tp_family`), with the seconds they took;
     8. the SSM and hybrid families on the route: mamba2-1.3b's and
-       hymba-1.5b's (:func:`_tp_family`), with the seconds they took.
+       hymba-1.5b's (:func:`_tp_family`), with the seconds they took;
+    9. the audio family on the route: whisper-base's train, prefill and
+       decode steps at full depth (6 + 6 layers), the cross-attention
+       cache on its own route (:func:`_tp_family`), with the seconds
+       they took.
 
     The group is destroyed at the end.  Returns the data-parallel serve
     runs' launches and the INT4 tensor-parallel decode steps'."""
@@ -3952,6 +3986,14 @@ def distributed_phase(dev, card):
         runs.update(_tp_family(dev, card, mesh, "hymba-1.5b", "ssm", 8))
         print(f"distributed: the SSM and hybrid steps "
               f"{time.perf_counter() - t_ssm:.1f} s", flush=True)
+
+        # 9. the audio family on the route: whisper-base (6 encoder and 6
+        # decoder layers, d 512, 8 heads) at full depth, its encoder over
+        # WHISPER_FRAMES frames a row
+        t_audio = time.perf_counter()
+        runs.update(_tp_family(dev, card, mesh, "whisper-base", "mlp"))
+        print(f"distributed: the audio steps "
+              f"{time.perf_counter() - t_audio:.1f} s", flush=True)
     finally:
         St.tp_for_step = tp_for_step
         dist.destroy_process_group()

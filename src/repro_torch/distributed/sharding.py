@@ -13,17 +13,17 @@ stays replicated.
 
 Where the compute splits as these specs lay the weights out: the train
 step (``launch/steps.py``, ``make_train_step(tensor_parallel=True)``)
-and the prefill and decode steps of the dense, VLM and MoE families
-(olmo-1b, stablelm-1.6b, gemma2-2b, internlm2-20b, paligemma-3b,
-granite-moe-3b-a800m, moonshot-v1-16b-a3b) gather each weight over
-``data`` only and run column/row-parallel over ``model``
-(``distributed/tensor_parallel``; the stacked experts split on
-``d_ff_expert``; heads that do not divide ``model``, gemma2-2b's and
-paligemma-3b's 8 and granite's 24 on 16 ranks, run whole on every
-rank); the SSM, hybrid and audio families (mamba2, hymba, whisper) and
-the train step without ``tensor_parallel=True`` gather every weight
-whole (FSDP): there ``model`` holds shards but does not split the
-compute.
+and the prefill and decode steps of every family (olmo-1b,
+stablelm-1.6b, gemma2-2b, internlm2-20b, paligemma-3b,
+granite-moe-3b-a800m, moonshot-v1-16b-a3b, mamba2-1.3b, hymba-1.5b,
+whisper-base) gather each weight over ``data`` only and run
+column/row-parallel over ``model`` (``distributed/tensor_parallel``;
+the stacked experts split on ``d_ff_expert``, the Mamba-2 mixer on its
+heads, whisper's ``xattn/`` as ``attn/``; heads that do not divide
+``model``, gemma2-2b's, paligemma-3b's and whisper-base's 8 and
+granite's 24 on 16 ranks, run whole on every rank); the train step
+without ``tensor_parallel=True`` gathers every weight whole (FSDP):
+there ``model`` holds shards but does not split the compute.
 
 A spec is :class:`P`, a tuple whose entries are ``None``, an axis name
 or a tuple of names, so ``tuple(spec) == tuple(jax_spec)`` compares it

@@ -1,6 +1,5 @@
 """Tensor-parallel compute over a mesh's ``model`` axis, for the sharded
-train, prefill and decode steps of the dense, VLM, MoE, SSM and hybrid
-families.
+train, prefill and decode steps of every LM family.
 
 JAX pjits its steps onto ``sharding.py``'s specs, and XLA's partitioner
 splits the compute where a spec names ``model``.  The port has no
@@ -18,19 +17,22 @@ Routes, by ``cfg.family`` (:func:`for_step`):
   embedding and head as the dense families', the MoE block below),
   ``"ssm"`` (mamba2-1.3b: the Mamba-2 mixer below, no attention) and
   ``"hybrid"`` (hymba-1.5b: the attention as the dense families', the
-  Mamba-2 mixer beside it, the GLU MLP) take the tensor-parallel route
-  below;
-* the audio family (whisper) and any mesh without a ``model`` axis
-  take the FSDP route: every param gathered whole, the whole loss on
-  every rank.
+  Mamba-2 mixer beside it, the GLU MLP) and ``"audio"`` (whisper-base:
+  the encoder's and decoder's self-attention and the decoder's
+  cross-attention split as the dense families' attention, with
+  biases, and the plain MLP) take the tensor-parallel route below;
+* a mesh without a ``model`` axis takes the FSDP route: every param
+  gathered whole, the whole loss on every rank.
 
 On the tensor-parallel route each param is gathered over the batch's
 mesh dims only and keeps the ``model`` split of :meth:`placements`:
 
 * column-parallel linears (``attn/w[qkv]``, ``mlp/w[ig]``, ``lm_head``,
-  ``vision_proj``) hold a slice of the outputs; their input passes
-  :meth:`~TensorParallel.copy_in` (identity forward, all-reduce
-  backward);
+  ``vision_proj``) hold a slice of the outputs, and of their bias; their
+  input passes :meth:`~TensorParallel.copy_in` (identity forward,
+  all-reduce backward) once for all the linears that read it (whisper's
+  cross-attention reads the encoder states, which pass it once for
+  every decoder layer);
 * row-parallel linears (``attn/wo``, ``mlp/wo``) hold a slice of the
   contraction; their partial products pass
   :meth:`~TensorParallel.reduce_out` (all-reduce forward, identity
@@ -99,6 +101,14 @@ KV cache stays where ``sharding.cache_entry_spec`` puts ``model``
   the whole cache and attends with its query heads over the KV heads
   they read (:meth:`kv_view`).
 
+Whisper's cross-attention cache (``xk``/``xv``, the encoder states'
+K/V, ``T_enc`` positions) takes the same rule on its own shape
+(:attr:`TensorParallel.xcache`): a prefill emits the rank's share, a
+decode step attends over it (on ``"seq"`` with the softmax merged over
+``model``) and never writes it.  Its route can differ from the self
+cache's: the card's 1500 frames do not divide 16 where a prompt padded
+to a multiple of 16 does.
+
 A Mamba-2 layer's state ``ssm`` ``(L, B, nh, hp, N)`` is the rank's
 heads' where they split (its spec splits ``nh``), else whole; its conv
 inputs ``conv`` ``(L, B, W - 1, conv_ch)`` are whole on every rank (the
@@ -120,7 +130,10 @@ from torch.distributed.tensor import Partial, Replicate, Shard
 
 from repro_torch.quant.qat import _ClipRoundSTE, fake_quant
 
-#: the model-axis layout of each split param: (path regex, part, dim)
+#: the model-axis layout of each split param: (path regex, part, dim).
+#: The ``attn/`` rows match whisper's cross-attention leaves
+#: (``xattn/w[qkv]/[wb]``, ``xattn/wo/w``) too, on purpose: JAX's rules
+#: split ``xattn/`` as ``attn/``, and both run through one ``_mha``
 _SPLITS = [
     (r"^embed$", "vocab", 0),
     (r"^lm_head/w$", "vocab", 1),
@@ -264,8 +277,9 @@ class TensorParallel:
     context for a part that splits, else ``None``.  ``cache``: where a
     serve step's KV cache splits over ``model`` (``"heads"``, ``"seq"``
     or ``"whole"``; module docstring), which the step sets; ``None`` in
-    the train step.  ``ssm``: the Mamba-2 mixer's heads split (module
-    docstring); ``ssm_heads`` the rank's count of them."""
+    the train step.  ``xcache``: the same for whisper's cross-attention
+    cache ``xk``/``xv``.  ``ssm``: the Mamba-2 mixer's heads split
+    (module docstring); ``ssm_heads`` the rank's count of them."""
 
     def __init__(self, cfg, mesh):
         self.group = mesh.get_group("model")
@@ -286,6 +300,7 @@ class TensorParallel:
         self.n_heads = cfg.n_heads // m if self.heads else cfg.n_heads
         self.n_kv, self._kv_cols, self._kv_index = cfg.n_kv, None, None
         self.cache: Optional[str] = None
+        self.xcache: Optional[str] = None
         if self.kv:
             self.n_kv = cfg.n_kv // m
         elif self.heads:
@@ -507,8 +522,8 @@ class TensorParallel:
 
 
 def for_step(cfg, mesh) -> Optional[TensorParallel]:
-    """A step's context on ``mesh``, or ``None`` for the FSDP route (the
-    audio family, a mesh without a ``model`` axis)."""
-    if cfg.family == "audio" or "model" not in (mesh.mesh_dim_names or ()):
+    """A step's context on ``mesh``, or ``None`` for the FSDP route (a
+    mesh without a ``model`` axis)."""
+    if "model" not in (mesh.mesh_dim_names or ()):
         return None
     return TensorParallel(cfg, mesh)

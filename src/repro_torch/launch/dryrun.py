@@ -16,8 +16,7 @@ runs the cell's step itself, on nothing:
 * params, moments, batch and cache are ``launch/specs.py``'s stand-ins
   placed by ``distributed/sharding.py``'s specs (DTensors), and the step
   is the port's own sharded step (``launch/steps.py``: train, prefill
-  and decode tensor-parallel over ``model`` for the dense, VLM and MoE
-  families, FSDP for the others);
+  and decode tensor-parallel over ``model`` for every family);
 * :class:`CellWalker`, a dispatch mode, meets every op rank 0 runs, at
   the rank's local shapes (``perfmodel.flops.LocalOpMode``: a DTensor
   op is handed on to DTensor, whose local ops and collectives come

@@ -9,19 +9,18 @@ mesh (DTensors, ``distributed.sharding.distribute``): the counterpart of
 JAX's pjit'd step, on one of two routes (:func:`_sharded_value_and_grad`):
 
 * tensor-parallel (``make_train_step(tensor_parallel=True)``, which the
-  dry run and ``chip_smoke.py`` ask for), for the ``"dense"``, ``"vlm"``,
-  ``"moe"``, ``"ssm"`` and ``"hybrid"`` families (olmo-1b,
+  dry run and ``chip_smoke.py`` ask for), for every family (olmo-1b,
   stablelm-1.6b, gemma2-2b, internlm2-20b, paligemma-3b,
-  granite-moe-3b-a800m, moonshot-v1-16b-a3b, mamba2-1.3b, hymba-1.5b):
-  each param is gathered over the batch's mesh dims and keeps its
-  ``model`` split, and the loss runs on the rank's shards through
-  ``distributed.tensor_parallel`` (column/row-parallel linears,
-  head-split attention, experts split on ``d_ff_expert``, the Mamba-2
-  mixer's heads split, vocab-split embedding and cross-entropy), as
-  XLA's partitioner splits JAX's step;
-* FSDP, for the audio family (whisper), meshes without ``model`` and
-  every family without ``tensor_parallel=True``: each param is gathered
-  whole and the whole
+  granite-moe-3b-a800m, moonshot-v1-16b-a3b, mamba2-1.3b, hymba-1.5b,
+  whisper-base): each param is gathered over the batch's mesh dims and
+  keeps its ``model`` split, and the loss runs on the rank's shards
+  through ``distributed.tensor_parallel`` (column/row-parallel linears,
+  head-split attention, whisper's cross-attention among them, experts
+  split on ``d_ff_expert``, the Mamba-2 mixer's heads split,
+  vocab-split embedding and cross-entropy), as XLA's partitioner
+  splits JAX's step;
+* FSDP, for meshes without ``model`` and every family without
+  ``tensor_parallel=True``: each param is gathered whole and the whole
   loss runs on every rank, so every rank's forward is the unsharded
   step's, bit for bit, on its rows (but for the MoE aux loss's batch
   means, below).  A split contraction rounds otherwise: on a (1, 1)
@@ -43,15 +42,17 @@ The prefill and decode steps take DTensor params too (JAX's dry run
 pjits all three kinds of step), forward only (:func:`_sharded_prefill`,
 :func:`_sharded_decode`).  They need no flag: with no AdamW after them
 there is no rounding to keep bit-equal, so they take the
-tensor-parallel route wherever the family and mesh allow it
+tensor-parallel route wherever the mesh allows it
 (``tensor_parallel.for_step`` is not ``None``), and FSDP elsewhere:
 
-* tensor-parallel, for every family but the audio one on a mesh with
-  ``model``: each param keeps its ``model`` split, as in the train
-  step, the model runs on the rank's shards and the KV cache stays
-  where ``sharding.cache_entry_spec`` puts ``model``: split by KV heads,
-  by sequence or whole (``distributed.tensor_parallel``'s three cache
-  routes); the logits come out vocab-split.  A packed (INT4) cache
+* tensor-parallel, for every family on a mesh with ``model``: each
+  param keeps its ``model`` split, as in the train step, the model runs
+  on the rank's shards and the KV cache stays where
+  ``sharding.cache_entry_spec`` puts ``model``: split by KV heads, by
+  sequence or whole (``distributed.tensor_parallel``'s three cache
+  routes), each of whisper's two caches on the route its own shape
+  takes (``k``/``v`` the prompt's, ``xk``/``xv`` the encoder's
+  ``T_enc`` positions); the logits come out vocab-split.  A packed (INT4) cache
   split by sequence is the one exception: a decode step gathers each
   of its layers over ``model`` (:class:`_LayerRows`) and attends whole,
   as ``kv_attention`` returns no log-sum-exp to merge.  A Mamba-2
@@ -59,9 +60,9 @@ tensor-parallel route wherever the family and mesh allow it
   inputs are whole on the rank (:func:`_model_at`); an entry whose
   spec splits it otherwise (the conv inputs' contiguous channel split,
   a state split on ``hp``) is read through :class:`_LayerRows`;
-* FSDP, for the audio family, as in the train step: every param
+* FSDP, on a mesh without ``model``, as in the train step: every param
   gathered whole and the whole model on the rank's rows; a decode step
-  gathers each cache layer over ``model`` for its rows.
+  gathers each cache layer over the mesh for its rows.
 
 Either way the outputs are placed as JAX's dry run's out shardings
 say, with no gather where the rank's layout already is the spec's.
@@ -83,7 +84,7 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.tensor_parallel import for_step as tp_for_step
 from repro_torch.distributed.tensor_parallel import mean_over
 from repro_torch.launch.mesh import dp_axes
-from repro_torch.models import moe, transformer
+from repro_torch.models import moe
 from repro_torch.models.api import get_model
 from repro_torch.train import optimizer as opt
 from repro_torch.tree import (
@@ -192,8 +193,7 @@ def _sharded_value_and_grad(mb, cfg, params, batch, split_model=False):
     # forward and in remat's recompute during the backward
     with moe.batch_mean(mean_over(mesh, [
             i for i, pl in enumerate(split) if pl.is_shard(0)])):
-        loss = (mb.loss_fn(tree, local) if tp is None else
-                transformer.loss_fn(tree, cfg, local, tp=tp)) * share
+        loss = mb.loss_fn(tree, local, tp=tp) * share
         grads = torch.autograd.grad(loss, held, materialize_grads=True)
     placed = [DTensor.from_local(g.to(torch.float32), mesh, pl,
                                  run_check=False)
@@ -277,7 +277,8 @@ _KV_AT = {"heads": Shard(3), "seq": Shard(2), "whole": Replicate()}
 
 def _model_at(tp, key: str):
     """The ``model`` placement of the rank's share of cache entry ``key``
-    on the tensor-parallel route: K/V by ``tp.cache``; an SSM state
+    on the tensor-parallel route: K/V by ``tp.cache``, whisper's cross
+    K/V (``xk``/``xv``) by ``tp.xcache``; an SSM state
     ``(L, B, nh, hp, N)`` split by heads where the mixer's heads split,
     else whole; the conv inputs whole (the mixer gathers their x
     channels: their spec's contiguous channel split is not the rank's
@@ -286,13 +287,13 @@ def _model_at(tp, key: str):
         return Shard(2) if tp.ssm else Replicate()
     if key == "conv":
         return Replicate()
-    return _KV_AT[tp.cache]
+    return _KV_AT[tp.xcache if key in ("xk", "xv") else tp.cache]
 
 
 def _kv_route(mesh, shape) -> str:
     """Where ``cache_entry_spec`` puts ``model`` on a stacked K/V entry
-    of ``shape`` ``(L, B, S, K, ...)``: ``"heads"``, ``"seq"`` or
-    ``"whole"``."""
+    of ``shape`` ``(L, B, S, K, ...)`` (the self or the cross cache: one
+    rule): ``"heads"``, ``"seq"`` or ``"whole"``."""
     pl = shd.NamedSharding(mesh, shd.cache_entry_spec(
         "k", shape, mesh, dp_axes(mesh))).placements[
         mesh.mesh_dim_names.index("model")]
@@ -344,14 +345,16 @@ def _sharded_prefill(mb, cfg, params, batch):
     if tp is None:
         full = unflatten_like(params, _held(params, mesh, None))
         return _place_serve_out(cfg, mesh, rows, *mb.prefill(full, local))
+    kv = (cfg.n_kv, cfg.head_dim)
     if not cfg.is_attention_free:
         tp.cache = _kv_route(mesh, (cfg.n_layers, first.shape[0],
                                     batch["tokens"].shape[1]
-                                    + cfg.vision_prefix_len, cfg.n_kv,
-                                    cfg.head_dim))
+                                    + cfg.vision_prefix_len) + kv)
+    if "frames" in batch:           # whisper's cross cache: T_enc long
+        tp.xcache = _kv_route(mesh, (cfg.n_layers, first.shape[0],
+                                     batch["frames"].shape[1]) + kv)
     held = unflatten_like(params, _held(params, mesh, tp))
-    logits, cache = transformer.prefill(
-        held, cfg, local["tokens"], local.get("vision_embeds"), tp=tp)
+    logits, cache = mb.prefill(held, local, tp=tp)
     return _place_serve_out(cfg, mesh, rows, logits, cache, tp)
 
 
@@ -370,8 +373,10 @@ def _sharded_decode(mb, cfg, params, cache, tokens, kv_len):
     tp = tp_for_step(cfg, mesh)
     if tp is not None and "k" in cache:
         tp.cache = _kv_route(mesh, tuple(cache["k"].shape))
-        if tp.cache == "seq" and cfg.kv_cache_bits != 16:
+        if tp.cache == "seq" and "k_scale" in cache:    # packed
             tp.cache = "whole"
+    if tp is not None and "xk" in cache:
+        tp.xcache = _kv_route(mesh, tuple(cache["xk"].shape))
     held = unflatten_like(params, _held(params, mesh, tp))
     local, stacks = {}, []
     for key, t in cache.items():
@@ -386,12 +391,8 @@ def _sharded_decode(mb, cfg, params, cache, tokens, kv_len):
         else:
             local[key] = _LayerRows(t, mesh, at)
             stacks.append(local[key])
-    if tp is None:
-        logits, new = mb.decode_step(held, local, tokens.to_local(),
-                                     kv_len=kv_len)
-    else:
-        logits, new = transformer.decode_step(
-            held, cfg, local, tokens.to_local(), kv_len=kv_len, tp=tp)
+    logits, new = mb.decode_step(held, local, tokens.to_local(),
+                                 kv_len=kv_len, tp=tp)
     for s in stacks:
         s.flush()
     return _place_serve_out(cfg, mesh, rows, logits,

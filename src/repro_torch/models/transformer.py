@@ -279,30 +279,34 @@ def _attn_block(lp, cfg: ArchConfig, x, *, window: int, prefix_len: int = 0,
     return o, (k, v)
 
 
-def _cache_share(lp, cfg: ArchConfig, x, pos, k, v, tp, split):
+def _cache_share(lp, cfg: ArchConfig, x, pos, k, v, tp, split, route=None):
     """A prefill's K/V of every KV head at the rank's share of the
-    positions (``tp.cache`` ``"seq"``) or at all of them (``"whole"``):
-    sliced from ``k``/``v`` where they hold every KV head, else computed
-    from ``wk``/``wv`` (gathered whole) on those positions alone."""
+    positions (``route``, default ``tp.cache``, ``"seq"``) or at all of
+    them (``"whole"``): sliced from ``k``/``v`` where they hold every KV
+    head, else computed from ``wk``/``wv`` (gathered whole, with their
+    biases) on those positions of ``x``, the K/V input, alone.  ``pos``
+    ``None``: the keys are not rotated (whisper's)."""
     s = x.shape[1]
-    lo, hi = tp.seq_range(s) if tp.cache == "seq" else (0, s)
+    lo, hi = tp.seq_range(s) if (route or tp.cache) == "seq" else (0, s)
     if not split:
         return k[:, lo:hi], v[:, lo:hi]
     pc, mode = cfg.precision, cfg.quant_mode
-    xs, ps = x[:, lo:hi], pos[..., lo:hi]
+    xs = x[:, lo:hi]
     shape = (x.shape[0], hi - lo, cfg.n_kv, cfg.head_dim)
-    k = L.rope(L.linear(lp["wk"], xs, pc, mode).reshape(shape), ps,
-               cfg.rope_theta)
+    k = L.linear(lp["wk"], xs, pc, mode).reshape(shape)
+    if pos is not None:
+        k = L.rope(k, pos[..., lo:hi], cfg.rope_theta)
     return k, L.linear(lp["wv"], xs, pc, mode).reshape(shape)
 
 
 def _seq_decode(q, k, v, cache_kv, cfg: ArchConfig, tp, split, cache_len,
                 window, kv_len, ragged, scale):
     """A decode step's attention over a bf16 cache whose sequence splits
-    over ``model`` (``tp.cache == "seq"``): the rank writes the new
-    position where its share holds it, attends with every query head
-    over its positions (the softmax merged over ``model``) and returns
-    its own query heads' output where the heads split."""
+    over ``model`` (``"seq"``): the rank writes the new position where
+    its share holds it (``k`` ``None``: a cross-attention's fixed cache,
+    nothing to write), attends with every query head over its positions
+    (the softmax merged over ``model``) and returns its own query heads'
+    output where the heads split."""
     if ragged:
         raise NotImplementedError(
             "ragged slot lengths over a sequence-split cache are not "
@@ -310,14 +314,16 @@ def _seq_decode(q, k, v, cache_kv, cfg: ArchConfig, tp, split, cache_len,
     k_cache, v_cache = cache_kv
     s_loc = k_cache.shape[1]
     lo, _ = tp.seq_range(s_loc * tp.size)
-    # the uniform step's one new position, written where this rank holds it
-    at = torch.as_tensor(cache_len, dtype=torch.int64,
-                         device=q.device).reshape(-1)[:1] - 1 - lo
-    ok = ((at >= 0) & (at < s_loc))[:, None, None, None]
-    at = torch.clamp(at, 0, s_loc - 1)
-    for cache, new in ((k_cache, k), (v_cache, v)):
-        cache.index_copy_(1, at, torch.where(
-            ok, new.to(cache.dtype), cache.index_select(1, at)))
+    if k is not None:
+        # the uniform step's one new position, written where this rank
+        # holds it
+        at = torch.as_tensor(cache_len, dtype=torch.int64,
+                             device=q.device).reshape(-1)[:1] - 1 - lo
+        ok = ((at >= 0) & (at < s_loc))[:, None, None, None]
+        at = torch.clamp(at, 0, s_loc - 1)
+        for cache, new in ((k_cache, k), (v_cache, v)):
+            cache.index_copy_(1, at, torch.where(
+                ok, new.to(cache.dtype), cache.index_select(1, at)))
     n = s_loc if kv_len is None else min(max(kv_len - lo, 1), s_loc)
     qa = tp.gather_heads(q) if split else q
     o = L.decode_attention(

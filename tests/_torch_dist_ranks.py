@@ -3,7 +3,8 @@ of ``test_torch_tensor_parallel.py``: :func:`case_tp`; of
 ``test_torch_tp_serve.py``: :func:`case_tp_serve`; of
 ``test_torch_tp_moe.py``: :func:`case_tp_moe`; of
 ``test_torch_tp_ssm.py``: :func:`case_tp_ssm`,
-:func:`case_tp_one_rank`).
+:func:`case_tp_one_rank`; of ``test_torch_tp_audio.py``:
+:func:`case_tp_audio`, :func:`case_tp_one_rank`).
 
 Run as ``python tests/_torch_dist_ranks.py CASE RANK WORLD DIR``: joins a
 gloo group through ``file://DIR/store``, reads the case's inputs from
@@ -293,7 +294,8 @@ def case_tp_serve(rank, world, inp):
     prefill and decode steps on the tensor-parallel route from the
     case's params (numpy), placed by the sharding rules, against the
     unsharded steps (:func:`_serve_run`).  Also returns the KV cache
-    route each step took (``None``: FSDP), the placements of each cache
+    route each step took (``None``: FSDP) and whisper's cross cache's
+    (``xroutes``), the placements of each cache
     entry a decode step saw through ``_LayerRows`` (a gather), and on
     rank 0 for the cases in ``inp["keep"]`` the whole outputs."""
     from repro_torch.distributed import sharding as shd
@@ -334,6 +336,7 @@ def case_tp_serve(rank, world, inp):
             out[name] = {
                 "checks": res,
                 "routes": [c and c.cache for c in contexts],
+                "xroutes": [c and c.xcache for c in contexts],
                 "heads": [c and c.heads for c in contexts],
                 "experts": [c and c.experts for c in contexts],
                 "ssm": [c and c.ssm for c in contexts],
@@ -452,9 +455,18 @@ def case_tp_ssm(rank, world, inp):
             "serve": case_tp_serve(rank, world, inp["serve"])}
 
 
+def case_tp_audio(rank, world, inp):
+    """``tests/test_torch_tp_audio.py``: whisper's train cases
+    (:func:`case_tp` on ``inp["train"]``) and serve cases
+    (:func:`case_tp_serve` on ``inp["serve"]``)."""
+    return {"train": case_tp(rank, world, inp["train"]),
+            "serve": case_tp_serve(rank, world, inp["serve"])}
+
+
 def case_tp_one_rank(rank, world, inp):
-    """``tests/test_torch_tp_ssm.py``: on a one-rank group and its (1, 1)
-    mesh, ``inp["cfg"]``'s tensor-parallel train step (2 steps) and its
+    """``tests/test_torch_tp_ssm.py`` (hymba) and
+    ``tests/test_torch_tp_audio.py`` (whisper, whose batch carries
+    ``frames``): on a one-rank group and its (1, 1) mesh, ``inp["cfg"]``'s tensor-parallel train step (2 steps) and its
     prefill and 2 decode steps, from params placed as JAX's specs say,
     and the unsharded ones from the same params: each run's losses,
     params after the steps, and logits and cache entries."""
@@ -498,7 +510,7 @@ def case_tp_one_rank(rank, world, inp):
                "params": [whole(p).clone() for p in leaves(params)]}
         with torch.no_grad():
             logits, cache = St.make_prefill_step(cfg)(
-                serve, {"tokens": b["tokens"]})
+                serve, {k: v for k, v in b.items() if k != "labels"})
             cache = {k: (torch.nn.functional.pad(
                 whole(v), (0, 0, 0, 0, 0, 2)) if k in ("k", "v") else
                 whole(v).clone()) for k, v in cache.items()}
@@ -520,7 +532,8 @@ def case_tp_one_rank(rank, world, inp):
 CASES = {"cp": case_cp, "ef": case_ef, "pipe": case_pipe, "step": case_step,
          "restore": case_restore, "serve": case_serve, "tp": case_tp,
          "tp_serve": case_tp_serve, "tp_moe": case_tp_moe,
-         "tp_ssm": case_tp_ssm, "tp_one_rank": case_tp_one_rank}
+         "tp_ssm": case_tp_ssm, "tp_audio": case_tp_audio,
+         "tp_one_rank": case_tp_one_rank}
 
 
 def main(case, rank, world, d):

@@ -308,8 +308,8 @@ def test_tp_moe_serve_against_jax(runs, name):
 #: each leaf kind (the path with its layer index dropped) -> the part of
 #: ``_SPLITS`` that should match it and the dim it splits; kinds not
 #: listed match no pattern.  whisper's leaves match the attention and
-#: dense MLP rules (as JAX's rules match them) but whisper takes the FSDP
-#: route, so they are never placed by them.  The Mamba-2 leaves' rows:
+#: dense MLP rules (as JAX's rules match them), its cross-attention's
+#: ``xattn/`` the ``attn/`` ones.  The Mamba-2 leaves' rows:
 #: ``test_torch_tp_ssm.py``, which checks their shapes
 INTENDED = {
     **SSM_INTENDED,

@@ -344,14 +344,15 @@ def test_for_step_admits_the_ssm_and_hybrid_families(arch):
     rank, which read 772 of ``in_proj``'s 8512 columns (256 of z, 256 of
     x, B and C's 256, 4 of dt) and 512 of the conv's 4352 channels, and
     no attention flag is set; hymba-1.5b splits only its MLP (25 heads,
-    5 KV heads, 50 SSM heads, vocab 32001); whisper-base takes the FSDP
-    route."""
+    5 KV heads, 50 SSM heads, vocab 32001); whisper-base takes the route
+    too, splitting only its MLP (8 heads, vocab 51865)."""
     cfg = configs.get_config(arch)
     tp = TP.for_step(cfg, _Mesh(16, 3))
-    if arch == "whisper-base":
-        assert tp is None
-        return
     assert tp is not None
+    if arch == "whisper-base":
+        assert (tp.heads, tp.kv, tp.ssm, tp.vocab, tp.mlp) == (
+            False, False, False, False, True)
+        return
     if cfg.family == "ssm":
         assert not (tp.heads or tp.kv or tp.mlp or tp.vocab)
         assert tp.ssm and tp.ssm_heads == 4
